@@ -1,8 +1,10 @@
-"""GeoDiffuser shared-attention editing (editor mode) as functions on tensors.
+"""GeoDiffuser shared-attention editing (editor and remover modes) as
+functions on tensors.
 
-Counterpart of the editor half of `geodiffuser_tpu/core/edit_attention.py`
-(reference AttentionGeometryEdit, attention_processors.py:384-624, the edit
-losses :231-305 and the smoothness TV loss, loss.py:29-40).
+Counterpart of `geodiffuser_tpu/core/edit_attention.py` (reference
+AttentionGeometryEdit, attention_processors.py:384-624,
+AttentionGeometryRemover, :748-928, the edit losses :231-305 and the
+smoothness TV loss, loss.py:29-40).
 
 q, k, v are (S, H, L, D): S CFG streams, H heads.  Logits, softmax and
 losses are float32.  Gradient boundaries follow the reference: the base
@@ -240,14 +242,46 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
     return edit_out * m_e + replace_out * (1.0 - m_e), loss, logs
 
 
+def _remover_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale: float,
+                    base_out):
+    """AttentionGeometryRemover edit-stream output + losses
+    (attention_processors.py:748-928)."""
+    b_i, e_i = state.base_idx, state.edit_idx
+    q_b, k_b, v_b = q[b_i].detach(), k[b_i].detach(), v[b_i].detach()
+    q_e = q[e_i]
+    edit_out = base_out.detach()   # the base stream's vanilla output
+    replace_out = fast_attention(q_e, k_b, v_b, scale)
+
+    loss = 0.0
+    logs = zero_logs()
+    l = q.shape[2]
+    if state.compute_losses and l >= state.loss_min_seq:
+        w = state.weights_cross if is_cross else state.weights_self
+        sim = background_preservation_loss(edit_out, replace_out, ms.background)
+        removal = removal_loss_fused(q_e, k_b, q_b, k_b, ms, scale)
+        smooth = smoothness_loss(replace_out)
+        loss = w["sim"] * sim + w["removal"] * removal + w["smoothness"] * smooth
+        logs = _branch_logs(is_cross, sim=sim, removal=removal, smoothness=smooth)
+
+    # past obj_edit_step, identity attention inside the inpaint mask
+    # (attention_processors.py:831-834, 922-925)
+    past_obj = state.past_obj_edit
+    if past_obj is None:
+        past_obj = state.cur_step >= state.obj_edit_thresh
+    m_in = ms.inpaint[None, :, None].to(replace_out.dtype)
+    m_bg = ms.background[None, :, None].to(replace_out.dtype)
+    if past_obj:
+        id_out = fast_attention(q_e, k[e_i], v[e_i], scale)
+        return id_out * m_in + replace_out * m_bg, loss, logs
+    return replace_out * m_in + replace_out * m_bg, loss, logs
+
+
 def edited_attention(q, k, v, *, is_cross: bool, state: EditState, scale: float
                      ) -> Tuple[torch.Tensor, object, Dict[str, object]]:
     """Full edited multi-stream attention (AttentionGeometryEdit.forward,
     attention_processors.py:633-664): cross layers are always edited,
     self layers inside the self-replace window; under CFG only the cond
     edit stream is replaced.  Returns (out (S,H,L,D), loss, logs)."""
-    if state.mode != "editor":
-        raise NotImplementedError("the remover stream is not ported yet")
     s, h, l, d = q.shape
     res = math.isqrt(l)
     if res * res != l or res not in state.masks:
@@ -265,7 +299,10 @@ def edited_attention(q, k, v, *, is_cross: bool, state: EditState, scale: float
     in_window = state.self_window
     if in_window is None:
         in_window = state.self_replace_lo <= state.cur_step < state.self_replace_hi
-    if is_cross or in_window:
+    if (is_cross or in_window) and state.mode == "remover":
+        out_e, loss, logs = _remover_stream(q, k, v, is_cross, state, ms, scale,
+                                            out_v[state.base_idx])
+    elif is_cross or in_window:
         out_e, loss, logs = _editor_stream(q, k, v, is_cross, state, ms, scale)
     else:
         e = state.edit_idx

@@ -1,9 +1,10 @@
-"""The GeoDiffuser edit loop and its top-level API, editor mode.
+"""The GeoDiffuser edit loop and its top-level API: the geometry editor,
+the object remover and the object stitch.
 
 Counterpart of `geodiffuser_tpu/core/editor.py` (reference
-`text2image_ldm_stable`, editor.py:65-423, and `perform_geometric_edit`,
-editor.py:428-710).  The JAX package's compiled step programs are plain
-functions here, run eagerly:
+`text2image_ldm_stable`, editor.py:65-423, `perform_geometric_edit`,
+editor.py:428-710, and the stitch pre-composite, editor.py:512-544).  The
+JAX package's compiled step programs are plain functions here, run eagerly:
 
  * optimize steps: a no-grad base pass records per-layer q/k/v taps, a
    differentiated one-stream edit pass consumes them and sums the five
@@ -11,7 +12,7 @@ functions here, run eagerly:
    the masked SGD update and norm projection;
  * CFG steps: a slim 3-stream pass, or a 2-stream pass reusing the same
    step's taps, then the DDIM step, base-trajectory pinning and the latent
-   warp-replace;
+   warp-replace (editor mode);
  * the CFG-only tail past the optimize and latent-replace windows is the
    same CFG step in a loop, with the warp operator of the tail's first step.
 
@@ -27,7 +28,7 @@ import logging
 import math
 import time
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from geodiffuser_tpu_torch.config import EditConfig
 from geodiffuser_tpu_torch.core import edit_attention, edit_state, inversion, optimization
 from geodiffuser_tpu_torch.core import scheduler as sched
 from geodiffuser_tpu_torch.core.pipeline import Pipeline, resolve_device
+from geodiffuser_tpu_torch.kernels import splat as splat_kernel
 from geodiffuser_tpu_torch.ops import image as image_ops
 from geodiffuser_tpu_torch.ops import splat as splat_ops
 from geodiffuser_tpu_torch.ops import transform_field as tf_ops
@@ -54,6 +56,9 @@ class EditResult:
     latents: Optional[torch.Tensor] = None   # (2, h, w, 4) final [base, edit] latents
 
 
+EDIT_TYPES = ("geometry_editor", "geometry_remover", "geometry_stitch")
+
+
 def _attention_resolutions(latent_size: int) -> tuple:
     return tuple(latent_size // (2 ** i) for i in range(4))
 
@@ -66,8 +71,8 @@ class EditSession:
         dev = resolve_device(device)
         if dev != pipeline.device:
             raise ValueError(f"session device {dev} differs from the pipeline's {pipeline.device}")
-        if cfg.edit_type != "geometry_editor":
-            raise NotImplementedError(f"{cfg.edit_type} is not ported yet (editor mode only)")
+        if cfg.edit_type not in EDIT_TYPES:
+            raise ValueError(f"unknown edit_type {cfg.edit_type!r}; expected one of {EDIT_TYPES}")
         if (cfg.apply_attention_constraints or cfg.perform_inversion
                 or (cfg.fast_start_steps > 0.0 and cfg.num_first_optim_steps > 1)):
             raise NotImplementedError("attention constraints, null-text inversion and the "
@@ -75,7 +80,7 @@ class EditSession:
         self.pipeline = pipeline
         self.cfg = cfg
         self.device = dev
-        self.mode = "editor"
+        self.mode = "remover" if cfg.edit_type == "geometry_remover" else "editor"
         self._inv_mem: "OrderedDict[str, torch.Tensor]" = OrderedDict()
         self._pipe_fp: Optional[str] = None
 
@@ -232,12 +237,12 @@ class EditSession:
 
     def _finish_cfg(self, state, masks, eps_g, lat_e, t, pinned_base, do_replace):
         """DDIM step on the edit stream, base-trajectory pinning
-        (editor.py:375-377) and the hard latent warp-replace while
-        i < latent_replace * T (editor.py:382-399)."""
+        (editor.py:375-377) and, in editor mode, the hard latent warp-replace
+        while i < latent_replace * T (editor.py:382-399)."""
         new_edit = sched.ddim_step(self.pipeline.schedule, eps_g[None], t, lat_e[None],
                                    self.cfg.num_ddim_steps)
         base = pinned_base.reshape(new_edit.shape)
-        if do_replace:
+        if do_replace and self.mode == "editor":
             res = self.pipeline.latent_size
             warped = splat_ops.apply_warp_matrix(state.warp_mats[res], base[0])
             i_mask = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
@@ -314,7 +319,10 @@ class EditSession:
         def record(i_p, logs_host):
             nonlocal weights
             loss_log[i_p] = logs_host
-            if cfg.use_adaptive_optimization:
+            if cfg.use_adaptive_optimization and cfg.edit_type == "geometry_stitch":
+                weights = optimization.adaptive_step_stitching(
+                    weights, defaults, i_p, cfg.skip_optim_steps, n, logs_host["self/sim"])
+            elif cfg.use_adaptive_optimization:
                 weights = optimization.adaptive_step(
                     weights, defaults, i_p, cfg.skip_optim_steps, n, logs_host["self/removal"],
                     cfg.edit_type, cfg.removal_loss_value)
@@ -334,10 +342,11 @@ class EditSession:
             win, obj = self._phase_flags(i)
             wm_i = min(i, tail_start) if tail_start < n else i
             wm_key = (radius_sched[wm_i], round(tau_sched[wm_i], 6))
-            if wm_key not in wm_cache:
+            # only the editor's query warp and latent warp-replace read them
+            if wm_key not in wm_cache and self.mode == "editor":
                 wm_cache[wm_key] = edit_state.build_warp_matrices(
                     masks, radius_sched[wm_i], tau_sched[wm_i], cfg.splat.z_beta)
-            wm = wm_cache[wm_key]
+            wm = wm_cache.get(wm_key)
             do_optimize = (i < optimize_frac * n and i % cfg.skip_optim_steps == 0
                            and i >= cfg.fast_start_steps * n)
             taps = None
@@ -370,9 +379,13 @@ class EditSession:
                           latents=latents2)
 
     def _postprocess(self, edited_u8, image_f, mask_np, res_mask, warped_input) -> np.ndarray:
-        """Masked histogram matching of the edit against the warp-composited
-        input (editor.py:660-694)."""
+        """Masked histogram matching of the edit against the input outside
+        the object (remover) or against the warp-composited input (editor,
+        stitch; editor.py:660-694)."""
         image_u8 = np.asarray(np.clip(image_f * 255.0, 0, 255)).astype(np.uint8)
+        if self.mode == "remover":
+            return image_ops.masked_histogram_matching(
+                edited_u8, image_u8, 1.0 - mask_np).astype(np.uint8)
         mask_changed = ((res_mask + mask_np) > 0.5) * 1.0
         mask_bg = ((1.0 - mask_changed) > 0.5) * 1.0
         composite = (mask_bg[..., None] * image_u8 + res_mask[..., None] * warped_input
@@ -393,3 +406,55 @@ def perform_geometric_edit(pipeline: Pipeline, image: np.ndarray, depth: np.ndar
     if session is None:
         session = EditSession(pipeline, cfg, device=device)
     return session.run(image, depth, image_mask, transform, prompt=prompt, progress=progress)
+
+
+def stitch_composite(cfg: EditConfig, background: np.ndarray, foreground: np.ndarray,
+                     fg_mask: np.ndarray, depth: np.ndarray, transform: np.ndarray,
+                     device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Pre-composite for stitching (editor.py:512-544): warp the foreground
+    image and its object mask along the transform field with the fused
+    splat, paste them onto the background.  Returns (composite (H, W, 3) in
+    [0, 1], warped binary mask (H, W)), the inputs of an identity-transform
+    editor run (perform_stitch)."""
+    dev = resolve_device(device)
+    fg = np.asarray(foreground, np.float32)
+    bg = np.asarray(background, np.float32)
+    if fg.max() > 1.5:
+        fg = fg / 255.0
+    if bg.max() > 1.5:
+        bg = bg / 255.0
+    f32 = dict(dtype=torch.float32, device=dev)
+    fg_t = torch.as_tensor(fg, **f32)
+    mask_t = image_ops.binarize(torch.as_tensor(np.asarray(fg_mask), **f32))
+    s = cfg.splat
+    tf = tf_ops.build_transform_field(
+        fg_t, torch.as_tensor(np.asarray(depth), **f32), mask_t,
+        torch.as_tensor(np.asarray(transform), **f32), focal_length=cfg.focal_length,
+        splat_radius=s.radius, splat_tau=s.tau, z_beta=s.z_beta)
+    warped_img = splat_kernel.splat_fused(fg_t, tf.coords, s.radius, s.tau, s.z_beta)
+    warped_mask = image_ops.binarize(
+        splat_kernel.splat_fused(mask_t[..., None], tf.coords, s.radius, s.tau, s.z_beta)[..., 0])
+    m3 = warped_mask[..., None]
+    composite = torch.clamp(warped_img * m3 + torch.as_tensor(bg, **f32) * (1.0 - m3), 0, 1)
+    return composite.cpu().numpy(), warped_mask.cpu().numpy()
+
+
+def perform_stitch(pipeline: Pipeline, background: np.ndarray, foreground: np.ndarray,
+                   fg_mask: np.ndarray, depth: np.ndarray, transform: np.ndarray,
+                   cfg: Optional[EditConfig] = None, prompt: str = "",
+                   session: Optional[EditSession] = None, progress=None,
+                   device="cuda") -> EditResult:
+    """Object stitching (the JAX package's redesign of the reference's dead
+    stitch controllers, editor.py:617-622): composite the transformed object
+    onto the background, then run the editor with an identity transform on
+    the warped mask so that its shared-attention losses harmonize the
+    pasted object.  Pass a session to reuse its inversion memo; the
+    composite is made on the session's device."""
+    cfg = cfg or EditConfig(edit_type="geometry_stitch")
+    if session is None:
+        session = EditSession(pipeline, cfg, device=device)
+    composite, warped_mask = stitch_composite(cfg, background, foreground, fg_mask, depth,
+                                              transform, device=session.device)
+    h, w = composite.shape[:2]
+    return session.run(composite, np.full((h, w), 0.5, np.float32), warped_mask, np.eye(4),
+                       prompt=prompt, progress=progress)

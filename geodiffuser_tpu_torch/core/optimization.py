@@ -3,8 +3,9 @@
 Counterpart of `geodiffuser_tpu/core/optimization.py` (reference
 optimization.py): the masked asymmetric / SGD-momentum update of the edit
 latent and conditional embedding, and the host-side adaptive removal
-weight.  Momentum is carried across steps (the JAX package's fix of the
-reference defect, PARITY.md 2.1).
+weight (for the stitch, the background-similarity weight).  Momentum is
+carried across steps (the JAX package's fix of the reference defect,
+PARITY.md 2.1).
 """
 
 from __future__ import annotations
@@ -88,6 +89,31 @@ def adaptive_step(weights: WeightTable, defaults: Mapping[str, Mapping[str, floa
     elif frac < 0.8:
         if (removal_loss_value - 0.3) < logged_self_removal:
             w["self"]["removal"] *= 2.0
+        else:
+            w = _clone(defaults)
+    else:
+        w = _clone(defaults)
+    return w
+
+
+def adaptive_step_stitching(weights: WeightTable, defaults: Mapping[str, Mapping[str, float]],
+                            step: int, skip_optim_steps: int, num_ddim_steps: int,
+                            logged_self_sim: float) -> WeightTable:
+    """Exponential expected-loss targeting of the background-similarity
+    weight (optimization.py:109-162); phases at 40% and 70% of the steps.
+    The stitch runs the editor's losses, so the key is `sim`."""
+    w = _clone(weights)
+    frac = step / num_ddim_steps
+    if frac < 0.4:
+        remaining = int((0.4 - frac) * num_ddim_steps / skip_optim_steps)
+        expected = 0.18 / (1.01 ** remaining)
+        if expected < logged_self_sim:
+            w["self"]["sim"] *= 1.1
+        elif 2.5 * expected > logged_self_sim:
+            w["self"]["sim"] /= 2.5
+    elif frac < 0.7:
+        if logged_self_sim > 0.2:
+            w["self"]["sim"] *= 1.1
         else:
             w = _clone(defaults)
     else:

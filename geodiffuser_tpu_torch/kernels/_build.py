@@ -37,6 +37,7 @@ SIGNATURES = {
     "gd_corr_spans": [_I],
     "gd_corr_fwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "gd_corr_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    "gd_splat_fused": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P],
 }
 
 

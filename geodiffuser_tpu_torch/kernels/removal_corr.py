@@ -175,6 +175,8 @@ class RemovalCorrelation(torch.autograd.Function):
             d_qe, d_ke = corr_bwd_cuda(qe, ke, kb, q_in, q_bg, g_in, g_bg, row_mask, ctx.scale)
         else:
             d_qe, d_ke = corr_bwd_plain(qe, ke, kb, q_in, q_bg, g_in, g_bg, ctx.scale)
+        # the remover passes its detached base keys as ke
+        d_ke = d_ke if ctx.needs_input_grad[1] else None
         return d_qe, d_ke, None, None, None, None, None, None
 
 

@@ -13,6 +13,7 @@ from geodiffuser_tpu_torch.core.pipeline import Pipeline
 from geodiffuser_tpu_torch.kernels import _build
 from geodiffuser_tpu_torch.kernels import flash_attention as fa
 from geodiffuser_tpu_torch.kernels import removal_corr as rc
+from geodiffuser_tpu_torch.kernels import splat as ks
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -25,7 +26,9 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "flax" or n.startswith("flax.")
              or n == "geodiffuser_tpu" or n.startswith("geodiffuser_tpu."))
 print(len(names), bad)
-assert len(names) >= 20, names
+assert len(names) >= 21, names
+assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.editor",
+        "geodiffuser_tpu_torch.core.edit_attention"} <= set(names), names
 assert not bad, bad
 """
 
@@ -52,6 +55,18 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(no_card):
         editor.perform_geometric_edit(pipe, np.zeros((64, 64, 3)), np.full((64, 64), 0.5),
                                       np.zeros((64, 64)), np.eye(4))
     assert editor.EditSession(pipe, EditConfig(num_ddim_steps=2), device="cpu").device.type == "cpu"
+    remover = EditConfig(edit_type="geometry_remover", num_ddim_steps=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        editor.EditSession(pipe, remover)
+    assert editor.EditSession(pipe, remover, device="cpu").mode == "remover"
+    scene = (np.zeros((64, 64, 3)), np.zeros((64, 64, 3)), np.zeros((64, 64)),
+             np.full((64, 64), 0.5), np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        editor.stitch_composite(EditConfig(edit_type="geometry_stitch"), *scene)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        editor.perform_stitch(pipe, *scene)
+    with pytest.raises(ValueError, match="edit_type"):
+        editor.EditSession(pipe, EditConfig(edit_type="geometry_resizer"), device="cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back(monkeypatch):
@@ -63,10 +78,14 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back(monkeypatch):
         fa.flash_fwd_cuda(q, q, q, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         rc.corr_fwd_cuda(q, q, q, q, torch.zeros(64), torch.zeros(64), torch.zeros(64), 0.1)
+    img, coords = torch.zeros(8, 8, 3), torch.zeros(8, 8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ks.splat_fused_cuda(img, coords, 1.3, 1.0, 20.0)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
-    counts = dict(fa.LAUNCHES)
+    counts = dict(fa.LAUNCHES), dict(ks.LAUNCHES)
     fa.flash_attention(q, q, q, 0.1)     # CPU tensors: the plain version, no launch counted
-    assert fa.LAUNCHES == counts
+    ks.splat_fused(img, coords)
+    assert (fa.LAUNCHES, ks.LAUNCHES) == counts
