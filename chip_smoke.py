@@ -1,21 +1,30 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--steps N] [--seed S] [--profile]
+    python3 chip_smoke.py --flash-only [--package-root DIR]
 
 Phases, each of which fails the run on error:
   1. builds the hand-written CUDA kernels from `geodiffuser_tpu_torch/csrc`;
   2. holds each kernel against its plain PyTorch version at the main paths'
      shapes (attention and removal correlation in float32 and bfloat16, the
      fused splat in float32), and times kernel, plain version and, for
-     attention, `scaled_dot_product_attention` as a yardstick;
-  3. runs three full-width edits (SD-1.4 geometry, bf16, 512^2, random
+     attention, `scaled_dot_product_attention` under each backend that runs
+     as a yardstick (bf16 flash at every shape the paths launch, by device
+     time);
+  3. runs one full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent)
+     and the latent gradient of <eps, R>, through the flash kernels and
+     with `flash_attention` replaced by its plain version, and compares them;
+  4. runs three full-width edits (SD-1.4 geometry, bf16, 512^2, random
      weights from --seed): `geometry_editor` and `geometry_remover` through
      `EditSession.run`, and `geometry_stitch` through `perform_stitch`, each
-     with every kernel's launch count set to 0 just before and read just
-     after;
-  4. runs a tiny float32 editor and remover edit on the card and on the CPU
+     with every kernel's launch count (and flash's count per shape) set to 0
+     just before and read just after;
+  5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
-Prints the card, a {"kernels": [...]} line and, last, the result line.
+`--flash-only` runs phases 1 and 2 for flash attention alone; with
+`--package-root DIR` the port is imported from DIR (a checkout of another
+commit), so that two commits' kernels are timed at the same shapes in one
+call.  Prints the card, a {"kernels": [...]} line and, last, the result line.
 float32 matmuls and convolutions run without TF32 (both switches are set
 off below) so that float32 comparisons hold float32 tolerances.
 """
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -93,49 +103,112 @@ TOL = {"f32": 1e-4, "bf16": 1.6e-2}
 SPLAT_TOL = 1e-5
 
 
-def check_flash(rng_seed: int):
+# bf16 flash shapes of the main paths, (B = streams * heads, Lq, Lk, D):
+# the 64^2 self-attention of 2- and 1-stream calls, the 32^2 maps, and the
+# warped-row blend's rectangular maps at 64^2 and 32^2; each is checked and
+# timed
+FLASH_FWD_SHAPES = [(16, 4096, 4096, 40), (8, 4096, 4096, 40), (16, 1024, 1024, 80),
+                    (8, 1024, 1024, 80), (8, 1024, 4096, 40), (8, 256, 1024, 80)]
+FLASH_BWD_SHAPES = [(8, 4096, 4096, 40), (8, 1024, 1024, 80)]
+# checked only: a ragged shape (no multiple of the 64-row tile, D not a
+# multiple of 16)
+FLASH_RAGGED = (3, 200, 1100, 72)
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of `fn` per call: the card first sleeps while the host
+    queues all `iters` calls, and events time them back to back, so that a
+    host slower than the card does not count (small attention calls take
+    less device time than their launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms of GPU clock cycles, longer than the queueing
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_ms(fwd: bool, q, k, v, do, scale: float):
+    """The fastest of SDPA's backends that run on these inputs: (ms, name).
+    The forward times one call; the backward one autograd backward of it."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best = (math.inf, None)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                if fwd:
+                    ms = device_ms(lambda: F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], scale=scale))
+                else:
+                    q4, k4, v4 = (x[None].detach().requires_grad_(True) for x in (q, k, v))
+                    out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                    ms = device_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do[None],
+                                                               retain_graph=True))
+        except RuntimeError as exc:   # a backend that does not take these inputs
+            log(f"sdpa {backend.name} {'fwd' if fwd else 'bwd'} {tuple(q.shape)}: not run "
+                f"({str(exc).splitlines()[0][:80]})")
+            continue
+        best = min(best, (ms, backend.name), key=lambda r: r[0])
+    return best
+
+
+def flash_bound(fwd: bool, b: int, lq: int, lk: int, d: int):
+    """Least time for the work at the native D: each input read once, each
+    output written once (bf16 tensors, float32 LSE), and 4 (forward) or 10
+    (backward) operations per (q row, key, head column)."""
+    e = 2
+    if fwd:
+        return bound_ms(e * (2 * b * lq * d + 2 * b * lk * d) + 4 * b * lq,
+                        4 * b * lq * lk * d, "bf16")
+    return bound_ms(e * (4 * b * lq * d + 2 * b * lk * d + b * lq * d + 2 * b * lk * d) + 4 * b * lq,
+                    10 * b * lq * lk * d, "bf16")
+
+
+def check_flash(rng_seed: int):
+    import torch
 
     from geodiffuser_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    # (B = streams * heads, Lq, Lk, D): a 2-stream vanilla call at 64^2, the
-    # 32^2 maps, and the warped-row blend's rectangular 1024 x 4096 map;
-    # the last shape of each list is ragged (no multiple of the 64-row tile)
-    fwd_shapes = [(16, 4096, 4096, 40), (16, 1024, 1024, 80), (8, 1024, 4096, 40),
-                  (8, 256, 1024, 80), (3, 200, 1100, 72)]
-    bwd_shapes = [(8, 4096, 4096, 40), (8, 1024, 1024, 80), (3, 200, 1100, 72)]
-    rec = {}
-    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for i, (b, lq, lk, d) in enumerate(fwd_shapes):
-            q = torch.randn(b, lq, d, device="cuda", generator=g).to(dt)
-            k = torch.randn(b, lk, d, device="cuda", generator=g).to(dt)
-            v = torch.randn(b, lk, d, device="cuda", generator=g).to(dt)
+    rand = lambda b, n, d, dt: torch.randn(b, n, d, device="cuda", generator=g).to(dt)
+    rec = {"flash_fwd": {"shapes": []}, "flash_bwd": {"shapes": []}}
+    # float32 (CUDA-core kernels): a shape of each class and the ragged one
+    f32_fwd = [FLASH_FWD_SHAPES[i] for i in (0, 2, 4, 5)] + [FLASH_RAGGED]
+    f32_bwd = FLASH_BWD_SHAPES + [FLASH_RAGGED]
+    for kind, dt, fwd_shapes, bwd_shapes in (
+            ("f32", torch.float32, f32_fwd, f32_bwd),
+            ("bf16", torch.bfloat16, FLASH_FWD_SHAPES + [FLASH_RAGGED],
+             FLASH_BWD_SHAPES + [FLASH_RAGGED])):
+        for b, lq, lk, d in fwd_shapes:
+            q, k, v = rand(b, lq, d, dt), rand(b, lk, d, dt), rand(b, lk, d, dt)
             scale = d ** -0.5
             o, lse = fa.flash_fwd_cuda(q, k, v, scale)
             o_p, lse_p = fa.flash_fwd_plain(q, k, v, scale)
             torch.cuda.synchronize()
             e_o, e_l = rel_err(o, o_p), abs_err(lse, lse_p)
             log(f"flash_fwd {kind} {(b, lq, lk, d)}: rel err o {e_o:.2e} lse abs {e_l:.2e} "
-                f"(tol {TOL[kind]:.1e})")
+                f"(tol {TOL[kind]:.1e}, 1e-3)")
             expect(e_o <= TOL[kind] and e_l <= 1e-3, f"flash_fwd {kind} {(b, lq, lk, d)}")
-            if i == 0 and kind == "bf16":
-                ms = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale))
-                plain = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale), 3)
-                q4, k4, v4 = q[None], k[None], v[None]
-                lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
-                e = 2
-                bnd = bound_ms(e * (2 * b * lq * d + 2 * b * lk * d) + 4 * b * lq,
-                               4 * b * lq * lk * d, kind)
-                rec["flash_fwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound=bnd,
-                                        max_abs_err=abs_err(o, o_p),
-                                        shape=[b, lq, lk, d], dtype=kind)
-        for i, (b, lq, lk, d) in enumerate(bwd_shapes):
-            q = torch.randn(b, lq, d, device="cuda", generator=g).to(dt)
-            k = torch.randn(b, lk, d, device="cuda", generator=g).to(dt)
-            v = torch.randn(b, lk, d, device="cuda", generator=g).to(dt)
-            do = torch.randn(b, lq, d, device="cuda", generator=g).to(dt)
+            if kind == "bf16" and (b, lq, lk, d) in FLASH_FWD_SHAPES:
+                ms = device_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale))
+                plain = device_ms(lambda: fa.flash_fwd_plain(q, k, v, scale), 3)
+                lib, backend = sdpa_ms(True, q, k, v, None, scale)
+                rec["flash_fwd"]["shapes"].append(dict(
+                    shape=[b, lq, lk, d], ms=ms, plain_ms=plain, library_ms=lib,
+                    library_backend=backend, bound=flash_bound(True, b, lq, lk, d),
+                    max_abs_err=abs_err(o, o_p)))
+        for b, lq, lk, d in bwd_shapes:
+            q, k, v, do = rand(b, lq, d, dt), rand(b, lk, d, dt), rand(b, lk, d, dt), rand(b, lq, d, dt)
             scale = d ** -0.5
             o, lse = fa.flash_fwd_plain(q, k, v, scale)
             got = fa.flash_bwd_cuda(q, k, v, o, lse, do, scale)
@@ -145,20 +218,78 @@ def check_flash(rng_seed: int):
             log(f"flash_bwd {kind} {(b, lq, lk, d)}: rel err dq/dk/dv "
                 f"{' '.join(f'{x:.2e}' for x in errs)} (tol {TOL[kind]:.1e})")
             expect(max(errs) <= TOL[kind], f"flash_bwd {kind} {(b, lq, lk, d)}")
-            if i == 0 and kind == "bf16":
-                ms = time_ms(lambda: fa.flash_bwd_cuda(q, k, v, o, lse, do, scale))
-                plain = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, scale), 3)
-                q4, k4, v4 = (x[None].detach().requires_grad_(True) for x in (q, k, v))
-                out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-                lib = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do[None],
-                                                          retain_graph=True))
-                e = 2
-                bnd = bound_ms(e * (4 * b * lq * d + 2 * b * lk * d + b * lq * d + 2 * b * lk * d)
-                               + 4 * b * lq, 10 * b * lq * lk * d, kind)
-                rec["flash_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound=bnd,
-                                        max_abs_err=max(abs_err(x, y) for x, y in zip(got, ref)),
-                                        shape=[b, lq, lk, d], dtype=kind)
+            if kind == "bf16" and (b, lq, lk, d) in FLASH_BWD_SHAPES:
+                ms = device_ms(lambda: fa.flash_bwd_cuda(q, k, v, o, lse, do, scale))
+                plain = device_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, scale), 3)
+                lib, backend = sdpa_ms(False, q, k, v, do, scale)
+                rec["flash_bwd"]["shapes"].append(dict(
+                    shape=[b, lq, lk, d], ms=ms, plain_ms=plain, library_ms=lib,
+                    library_backend=backend, bound=flash_bound(False, b, lq, lk, d),
+                    max_abs_err=max(abs_err(x, y) for x, y in zip(got, ref))))
+    for name, r in rec.items():
+        for sh in r["shapes"]:
+            log(f"{name} bf16 {tuple(sh['shape'])}: {sh['ms']:.4f} ms, plain {sh['plain_ms']:.4f}, "
+                f"SDPA {sh['library_ms']:.4f} ({sh['library_backend']}), bound "
+                f"{sh['bound'][0]:.4f} ({sh['bound'][1]}), {sh['ms'] / sh['library_ms']:.2f}x SDPA")
+        # the headline fields: the first (largest) shape of each list
+        r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"},
+                 max_abs_err=max(sh["max_abs_err"] for sh in r["shapes"]), dtype="bf16")
     return rec
+
+
+def check_unet_flash(pipe, seed: int) -> dict:
+    """One full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent and a
+    text embedding from the seed) and the gradient of <eps, R> with respect
+    to the latent for a seeded R, once through the kernels and once with
+    `flash_attention` replaced by its plain version inside this phase.  The
+    ten self-attention layers at 64^2 and 32^2 go through flash_fwd and, in
+    the gradient, flash_bwd."""
+    import torch
+
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    side = SIZE // 8
+    latent = torch.randn(2, side, side, 4, device="cuda", generator=g)
+    context = torch.randn(2, 77, pipe.config.cross_attention_dim, device="cuda", generator=g)
+    r = torch.randn(2, side, side, 4, device="cuda", generator=g)
+
+    def run():
+        x = latent.clone().requires_grad_(True)
+        eps = pipe.unet(x, 500, context)
+        (grad,) = torch.autograd.grad((eps * r).sum(), x)
+        torch.cuda.synchronize()
+        return eps.detach(), grad
+
+    out = {}
+    kernel = fa.flash_attention
+    for route in ("kernels", "plain"):
+        fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+        fa.SHAPES.clear()
+        if route == "plain":
+            fa.flash_attention = fa.attention_plain
+        try:
+            out[route] = run() + (dict(fa.LAUNCHES), dict(fa.SHAPES))
+        finally:
+            fa.flash_attention = kernel
+    (eps_k, g_k, n_k, s_k), (eps_p, g_p, n_p, _) = out["kernels"], out["plain"]
+    e_eps = rel_err(eps_k, eps_p)
+    cos = float(torch.nn.functional.cosine_similarity(g_k.flatten(), g_p.flatten(), dim=0))
+    log(f"unet bf16 (2, {side}, {side}, 4) kernels vs plain flash: eps rel err {e_eps:.2e} "
+        f"(tol 2e-2), latent gradient cosine {cos:.5f} (>= 0.99)")
+    log(f"unet launches: kernels {n_k} {shape_counts(s_k)}; plain {n_p}")
+    expect(all(bool(torch.isfinite(t).all()) for t in (eps_k, g_k, eps_p, g_p)), "unet: finite")
+    expect(e_eps <= 2e-2 and cos >= 0.99, "unet: kernels vs plain flash")
+    expect(n_k == {"flash_fwd": 10, "flash_bwd": 10} and n_p == {"flash_fwd": 0, "flash_bwd": 0},
+           f"unet: flash launches {n_k} / plain {n_p}")
+    del out
+    torch.cuda.empty_cache()
+    return dict(eps_rel_err=e_eps, grad_cosine=cos)
+
+
+def shape_counts(shapes: dict) -> str:
+    """{(name, B, Lq, Lk, D): n} as 'name BxLqxLkxD: n' items."""
+    return ", ".join(f"{k[0]} {'x'.join(map(str, k[1:]))}: {n}" for k, n in sorted(shapes.items()))
 
 
 def check_corr(rng_seed: int, editor_live: int, remover_live: int):
@@ -405,8 +536,11 @@ def run_path(args, pipe, path: str):
         go = lambda: perform_stitch(pipe, background, image, mask, depth,
                                     camera.compose_transform(tx=0.1), cfg=cfg)
 
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+
     for counts in launch_counts():
         counts.update(dict.fromkeys(counts, 0))
+    fa.SHAPES.clear()
     torch.cuda.reset_peak_memory_stats()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -419,10 +553,12 @@ def run_path(args, pipe, path: str):
         res = go()
     torch.cuda.synchronize()
     launches = {k: v for counts in launch_counts() for k, v in counts.items()}
+    shapes = dict(fa.SHAPES)
     log(f"{path} ({args.steps} DDIM steps): timings "
         f"{json.dumps({k: round(v, 3) for k, v in res.timings.items()})}")
     log(f"{path}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{path}: kernel launches {launches}")
+    log(f"{path}: flash launches by shape {shape_counts(shapes)}")
     for i, logs in sorted(res.loss_log.items()):
         log(f"{path}: step {i} loss total {logs['total']:.4f} self/removal "
             f"{logs['self/removal']:.4f} self/sim {logs['self/sim']:.4f}")
@@ -434,7 +570,7 @@ def run_path(args, pipe, path: str):
     for name, want in PATH_KERNELS[path].items():
         ok = launches[name] > 0 if want is None else launches[name] == want
         expect(ok, f"{path}: kernel {name} launched {launches[name]} times on the main path")
-    return launches
+    return launches, shapes
 
 
 def report_profile(path: str, prof, wall_s: float) -> None:
@@ -549,7 +685,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace each edit with torch.profiler and print device time by kernel")
+    ap.add_argument("--flash-only", action="store_true",
+                    help="check and time the flash kernels only")
+    ap.add_argument("--package-root", default=None,
+                    help="import geodiffuser_tpu_torch from this directory")
     args = ap.parse_args(argv)
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
 
     import torch
 
@@ -574,7 +716,17 @@ def main(argv=None) -> int:
     _build.lib()
     log(f"kernels built in {time.time() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
 
+    t0 = time.time()
     rec = check_flash(args.seed)
+    log(f"flash checks and timings: {time.time() - t0:.1f} s")
+    if args.flash_only:
+        from geodiffuser_tpu_torch.kernels import flash_attention as fa
+
+        log(f"package: {os.path.dirname(fa.__file__)}")
+        log(json.dumps({"kernels": [{"name": n, **{k: v for k, v in r.items() if k != "bound"},
+                                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                                    for n, r in rec.items()]}))
+        return finish(card)
     rec.update(check_corr(args.seed, scene_live_rows(SIZE, "editor"),
                           scene_live_rows(SIZE, "remover")))
     rec.update(check_splat(args.seed))
@@ -584,7 +736,15 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"pipeline: SD-1.4 geometry, bf16, {SIZE}^2, random init seed {args.seed}: "
         f"{time.time() - t0:.1f} s")
-    by_path = {path: run_path(args, pipe, path) for path in PATH_KERNELS}
+    t0 = time.time()
+    unet = check_unet_flash(pipe, args.seed)
+    log(f"unet phase: {time.time() - t0:.1f} s")
+    runs = {path: run_path(args, pipe, path) for path in PATH_KERNELS}
+    by_path = {path: launches for path, (launches, _) in runs.items()}
+    timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
+             | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES})
+    untimed = {key for _, shapes in runs.values() for key in shapes} - timed
+    expect(not untimed, f"flash shapes launched on a path but not timed: {sorted(untimed)}")
     del pipe
     small_reference("geometry_editor")
     small_reference("geometry_remover")
@@ -600,12 +760,30 @@ def main(argv=None) -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": r["dtype"],
         }
+        if "shapes" in r:   # flash: every timed shape, with its launches on each path
+            entry["shapes"] = [dict(
+                shape=sh["shape"], ms=sh["ms"], plain_ms=sh["plain_ms"],
+                bound_ms=sh["bound"][0], bound_by=sh["bound"][1], library_ms=sh["library_ms"],
+                library_backend=sh["library_backend"], max_abs_err=sh["max_abs_err"],
+                launches_by_path={path: shapes.get((name, *sh["shape"]), 0)
+                                  for path, (_, shapes) in runs.items()})
+                for sh in r["shapes"]]
+            entry["library_backend"] = r["library_backend"]
+            if name == "flash_bwd":
+                entry["unet_check"] = unet
         if "remover_ms" in r:   # the correlation at the remover's K = 2048 budget
             entry.update(remover_shape=r["remover_shape"], remover_live_rows=r["remover_live_rows"],
                          remover_ms=r["remover_ms"], remover_plain_ms=r["remover_plain_ms"],
                          remover_bound_ms=r["remover_bound"][0])
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
+    return finish(card)
+
+
+def finish(card: str) -> int:
+    """The card line and, last, the result line."""
+    import torch
+
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

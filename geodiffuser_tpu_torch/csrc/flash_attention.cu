@@ -4,28 +4,41 @@
 // (_fwd_kernel) and _flash_bwd_impl (_bwd_dq_kernel, _bwd_dkv_kernel).
 //
 // What bounds it on the H100: at the main path's shapes (Lq = Lk = 4096,
-// D = 40 and Lq = Lk = 1024, D = 80) the work is 4*Lq*Lk*D operations per
-// (batch*head) against 2*(Lq + 2*Lk)*D bytes in bf16, about 1000 operations
-// per byte: far above the ~295 at which the card stops being memory bound, so
-// the tensor-core rate bounds it.  bf16 (the main path) runs every product
-// of the forward and the backward on the tensor cores with mma.sync
-// (m16n8k16); float32 inputs use float32 FMAs on the CUDA cores (67 TFLOP/s
-// peak, not the 989 of bf16 tensor cores) and serve only float32 checks.
-// D is at most 80: flash runs on self-attention at 32^2 and 64^2 only.  Loads
-// are synchronous and the tiles small; wgmma, TMA and pipelined loads are
-// the next steps.
+// D = 40; Lq = Lk = 1024, D = 80; the warped-row blend's 1024 x 4096, D = 40)
+// the work is 4*Lq*Lk*D operations per (batch*head) against
+// 2*(Lq + 2*Lk)*D bytes in bf16, about 1000 operations per byte: far above
+// the ~295 at which the card stops being memory bound, so the tensor-core
+// rate bounds it.  What keeps a kernel from that rate is feeding the tensor
+// cores: the tiles' traffic from L2, and the softmax between the products.
 //
-// Design: the Pallas grid carried the online-softmax state across sequential
-// k blocks in VMEM.  Here one block owns a 64-row q tile and loops over all
-// 64-key tiles itself; nothing is carried between blocks.  Each tile row is
-// worked by 4 neighbouring lanes (16 logits each, then D/4 output columns
-// each), so row max and row sum are two shuffles.  D stays at its native
-// width in device memory (40/80) and is padded only by the +1 shared
-// memory stride; ragged Lq/Lk are masked in the kernel.  The backward is a
-// delta pre-pass, a dq kernel per q tile that loops over k, and a dk/dv
-// kernel per k tile that loops over q: no atomics, deterministic.
-// Probabilities and dS are rounded to the input type before their product,
-// as the Pallas kernels cast them.
+// Design (bf16, the main path): the Pallas grid carried the online-softmax
+// state across sequential k blocks in VMEM; here a block loops over the
+// whole key (or, for dk/dv, query) axis itself and nothing is carried
+// between blocks.  One producer warp keeps a ring of 64-row tiles in flight
+// with TMA (cp.async.bulk.tensor, 128-byte swizzle, mbarrier completion), so
+// loads overlap the products and no consumer thread spends instructions on
+// them.  Consumer warpgroups run every product as wgmma: S = Q K^T with both
+// operands in shared memory, then P V with P rounded to bf16 in registers
+// and V read row-major through wgmma's transpose bit (no transposed copy).
+// D = 40 is padded to a k-depth of 48 for Q K^T by TMA's zero fill and runs
+// P V at its native width of 40 (m64n40k16); D = 80 runs both at 80.  At
+// these widths each 64-key tile carries little work for the bytes it
+// brings from L2, so the ring's traffic bounds the kernel before the tensor
+// cores do: every loaded tile feeds as many 64-row q tiles as the block's
+// registers allow (four in the forward at D = 40), and the wrapper trades
+// row tiles for blocks per shape so that small maps still fill the SMs.
+// The backward is a dq kernel per q tile, which also computes delta =
+// rowsum(dO o O) for its rows and writes it, and a dk/dv kernel per key tile
+// that reads it, launched after it on the same stream: no atomics,
+// deterministic.  Probabilities and dS are rounded to bf16 before their
+// products, as the Pallas kernels cast them; the LSE is float32, natural log.
+//
+// float32 inputs run the CUDA-core kernels below (float32 FMAs, 67 TFLOP/s
+// peak) and serve only float32 checks.  D is at most 80: flash runs on
+// self-attention at 32^2 and 64^2 only.  The bf16 kernels need D to be a
+// multiple of 8 (16-byte TMA rows); the wrapper pads other widths.
+#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
+
 #include "common.cuh"
 
 using namespace gd;
@@ -252,405 +265,829 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 
-// ---------------------------------------------------------------- bf16 forward
-// Tensor-core version of the forward for bf16 inputs: mma.sync m16n8k16
-// (bf16 x bf16 -> f32).  4 warps x 16 query rows = one 64-row tile; each
-// warp keeps its Q fragments in registers, computes S = Q K^T for 64 keys
-// (8 n-tiles), runs the online softmax on the accumulators and feeds P
-// (rounded to bf16, as the Pallas kernel casts it) straight from the S
-// accumulator layout into the A operand of O += P V.  D is padded to a
-// multiple of 16 with zeros in shared memory only (D <= 80, so the three
-// bf16 tiles fit the 48 KB of static shared memory).  float32 inputs keep
-// the CUDA-core kernel above.
+// ------------------------------------------------------ bf16: TMA + wgmma
+// One block = NC consumer warpgroups (wgmma) + one producer warp (TMA):
+// NC = 4 in the forward at D <= 40; 2 at D = 80 and in the backward
+// kernels, whose accumulators take more registers (fwd_nc, BWD_NC).  Every operand tile is 64 rows of the (B, L, D)
+// tensor, loaded by TMA as ceil(D/64) boxes of 64 columns x 64 rows with the
+// 128-byte swizzle; TMA zero-fills columns >= D (the padding of the
+// products' depth) and rows >= L.  The wrapper plans `rows`, the row tiles
+// of a block, per shape: more row tiles share each loaded tile of the loop
+// axis (the ring's traffic from L2 per operation falls), fewer give more
+// blocks.
+
+constexpr int BOX = 64 * 128;        // bytes of one 64 x 64 bf16 TMA box
+
+template <int DV>  // padded head width: 40 (D <= 40) or 80 (D <= 80)
+struct Tiles {
+  static constexpr int CB = DV > 64 ? 2 : 1;       // 64-column boxes per tile
+  static constexpr int TB = CB * BOX;              // bytes of one 64-row tile
+  static constexpr int KS = (DV + 15) / 16;        // k16 steps over the head dim
+  static constexpr int NACC = DV / 2;              // fp32 accumulators / thread (64 x DV)
+  // ring depth: a block's loads in flight, its bandwidth from L2 being
+  // about STAGES tiles per load latency
+  static constexpr int STAGES = DV > 64 ? 4 : 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// A wait that outlives ~2^24 polls (seconds; a healthy wait is microseconds)
+// traps, so a pipeline fault is reported as an error instead of a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    if (n == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// a consumer warp's wait: its lanes reconverge before the .aligned wgmma
+// instructions that follow
+__device__ __forceinline__ void mbar_wait_warp(uint32_t bar, uint32_t parity) {
+  mbar_wait(bar, parity);
+  __syncwarp();
+}
+
+// rows [row, row + 64) of batch b, all ceil(D/64) column boxes, into dst
+template <int CB>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int b) {
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst + c * BOX),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c * 64), "r"(row), "r"(b)
+        : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// k16 step kk of a tile read along its columns (K-major: Q, K, V, dO as the
+// depth-D operand of S = Q K^T and its kin): 32 bytes per step inside a
+// 128-byte swizzled row, the next box after four steps
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + (kk >> 2) * BOX + (kk & 3) * 32, 16, 1024);
+}
+// k16 step kc of a tile read along its rows (MN-major: V in P V, K in dS K,
+// dO in P^T dO, Q in dS^T Q): 16 rows of 128 bytes per step; the 64-column
+// boxes lie BOX bytes apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kc) {
+  return desc(tile + kc * 2048, BOX, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// all but the last committed group done (groups complete in order)
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+// keep the compiler from moving register reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define GD_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define GD_F8(i) GD_F4(i), GD_F4(i + 4)
+
+// d (64 x 64) (+)= A (64 x 16, smem) B^T (64 x 16, smem), both K-major
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GD_F8(0), GD_F8(8), GD_F8(16), GD_F8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x DV) += A (64 x 16, registers) B (16 x DV, smem, MN-major)
+template <int DV> __device__ void wgmma_rs(float (&d)[DV / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<40>(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : GD_F8(0), GD_F8(8), GD_F4(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : GD_F8(0), GD_F8(8), GD_F8(16), GD_F8(24), GD_F8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef GD_F8
+#undef GD_F4
+
+// 2^x on the special-function unit (one instruction; subnormal results,
+// probabilities below 2^-126, flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// A fragments (bf16) of a 64 x 64 accumulator for the four k16 steps of
+// its columns: the accumulator layout of n8 tiles 2kc, 2kc + 1 is the
+// register-A layout of k16 step kc
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    a[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+    a[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+    a[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+    a[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d (64 x DV) += A (64 x 64, four register k-steps) B (64 rows of a tile)
+template <int DV>
+__device__ __forceinline__ void mma_rows(float (&d)[DV / 2], const uint32_t (&a)[4][4],
+                                         uint32_t tile) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<DV>(d, a[kc], desc_mn(tile, kc));
 }
 
-template <int ND>  // ND = padded D / 16
-__global__ void __launch_bounds__(128)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int Lq, int Lk, int D, float scale_log2) {
-  constexpr int DP = ND * 16;
-  constexpr int SQ = DP + 8;        // row stride (elements) of Q and K tiles
-  constexpr int SV = TILE + 8;      // row stride of the transposed V tile
-  __shared__ __align__(16) __nv_bfloat16 sQ[TILE * SQ];
-  __shared__ __align__(16) __nv_bfloat16 sK[TILE * SQ];
-  __shared__ __align__(16) __nv_bfloat16 sVt[DP * SV];
-  const int b = blockIdx.y, q0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const __nv_bfloat16* qb = q + (size_t)b * Lq * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Lk * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Lk * D;
-
-  for (int e = threadIdx.x; e < TILE * DP; e += 128) {
-    const int r = e / DP, d = e - r * DP;
-    sQ[r * SQ + d] = (q0 + r < Lq && d < D) ? qb[(size_t)(q0 + r) * D + d] : zero;
-  }
-  __syncthreads();
-  const int r0 = warp * 16;
-  uint32_t qa[ND][4];
+// d (64 x 64) = A (tile a) B^T (tile b) over the padded head dim
+template <int DV>
+__device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int kc = 0; kc < ND; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    qa[kc][0] = ld32(&sQ[(r0 + g) * SQ + c]);
-    qa[kc][1] = ld32(&sQ[(r0 + g + 8) * SQ + c]);
-    qa[kc][2] = ld32(&sQ[(r0 + g) * SQ + c + 8]);
-    qa[kc][3] = ld32(&sQ[(r0 + g + 8) * SQ + c + 8]);
-  }
-  float acc[ND * 2][4];
-#pragma unroll
-  for (int i = 0; i < ND * 2; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // rows g and g + 8 (partial sums)
+  for (int kk = 0; kk < Tiles<DV>::KS; ++kk) wgmma_ss64(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
+}
 
-  for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < TILE * DP; e += 128) {
-      const int r = e / DP, d = e - r * DP;
-      const bool ok = k0 + r < Lk && d < D;
-      sK[r * SQ + d] = ok ? kb[(size_t)(k0 + r) * D + d] : zero;
-      sVt[d * SV + r] = ok ? vb[(size_t)(k0 + r) * D + d] : zero;
+// Store a 64 x DV accumulator (times mul) as bf16 rows [row0, row0 + 64) of
+// an (L, D) matrix; the warp's rows are w16 + g and w16 + g + 8.
+template <int DV>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[DV / 2], int row0,
+                                           int L, int D, float mul0, float mul1, int w16, int g,
+                                           int tig) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + w16 + g + 8 * h;
+    if (row >= L) continue;
+    const float mul = h ? mul1 : mul0;
+#pragma unroll
+    for (int jn = 0; jn < DV / 8; ++jn) {
+      const int c = jn * 8 + tig * 2;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + c) =
+            __floats2bfloat162_rn(acc[4 * jn + 2 * h] * mul, acc[4 * jn + 2 * h + 1] * mul);
     }
-    __syncthreads();
-    float s[8][4];
+  }
+}
+
+// Plan: a block's NC consumer warpgroups form `rows` row tiles (64 rows of
+// the output axis each) times S = NC / rows splits.  The S warpgroups of a
+// row tile take every S-th tile of the loop axis and combine their partial
+// results through shared memory at the end (the idle ring and operand
+// tiles: every product has completed by then).
+__device__ __forceinline__ float* part_slot(float* buf, int n, int rt, int sp, int S, int t) {
+  return buf + (size_t)(rt * (S - 1) + sp - 1) * n * 128 + t;
+}
+
+// The warpgroups with sp > 0 hand their N values per thread to warpgroup
+// sp = 0 of their row tile, which adds them; false for those that handed.
+template <int N>
+__device__ __forceinline__ bool merge_sum(float* buf, float (&v)[N], int rt, int sp, int S, int t,
+                                          int nthreads) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  bar_sync(1, nthreads);
+  if (sp > 0) {
+    float* dst = part_slot(buf, N, rt, sp, S, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int i = 0; i < N; ++i) dst[i * 128] = v[i];
+  }
+  bar_sync(1, nthreads);
+  if (sp > 0) return false;
+  for (int s2 = 1; s2 < S; ++s2) {
+    const float* src = part_slot(buf, N, rt, s2, S, t);
 #pragma unroll
-      for (int kc = 0; kc < ND; ++kc) {
-        const __nv_bfloat16* kr = &sK[(j * 8 + g) * SQ + kc * 16 + tig * 2];
-        mma_bf16(s[j], qa[kc], ld32(kr), ld32(kr + 8));
+    for (int i = 0; i < N; ++i) v[i] += src[i * 128];
+  }
+  return true;
+}
+
+// Shared memory of a block: the block's own operand tiles (`own` 64-row
+// tiles), the ring of ST stages of two tiles, the barriers (full[ST],
+// empty[ST], one for the own tiles) and `stat` floats of row statistics.
+template <int DV>
+struct Smem {
+  uint8_t* base;
+  uint32_t own, ring, bars, once;
+  float* stat;
+  __device__ Smem(uint8_t* raw, int own_tiles) {
+    base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    own = smem_u32(base);
+    ring = own + own_tiles * Tiles<DV>::TB;
+    bars = ring + 2 * Tiles<DV>::STAGES * Tiles<DV>::TB;
+    once = bars + 16 * Tiles<DV>::STAGES;
+    stat = reinterpret_cast<float*>(base + (once + 16 - own));
+  }
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (Tiles<DV>::STAGES + s); }
+  __device__ uint32_t stage(int s) const { return ring + s * 2 * Tiles<DV>::TB; }
+  // one thread: full barriers count `producers` arrivals, empty barriers
+  // the 128 threads of each of the `rows` warpgroups that read a stage
+  __device__ void init(int producers, int rows) const {
+    for (int s = 0; s < Tiles<DV>::STAGES; ++s) {
+      mbar_init(full(s), producers);
+      mbar_init(empty(s), 128 * rows);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+};
+
+// Producer: tile j of the loop axis, from two maps, into its ring stage
+template <int DV>
+__device__ __forceinline__ void produce_stage(const Smem<DV>& sm, int j, const CUtensorMap* m0,
+                                              const CUtensorMap* m1, int b) {
+  constexpr int ST = Tiles<DV>::STAGES, TB = Tiles<DV>::TB;
+  const int s = j % ST;
+  mbar_expect_tx(sm.full(s), 2 * TB);
+  tma_tile<Tiles<DV>::CB>(sm.stage(s), m0, sm.full(s), j * TILE, b);
+  tma_tile<Tiles<DV>::CB>(sm.stage(s) + TB, m1, sm.full(s), j * TILE, b);
+}
+
+template <int DV>
+__device__ __forceinline__ void wait_empty(const Smem<DV>& sm, int j) {
+  constexpr int ST = Tiles<DV>::STAGES;
+  if (j >= ST) mbar_wait(sm.empty(j % ST), ((j / ST) - 1) & 1);
+}
+
+// Forward.  Per key tile a consumer warpgroup runs S = Q K^T (wgmma, both
+// operands in shared memory), the online softmax on the accumulators
+// (exp2 domain), and O += P V with P rounded to bf16 in registers (the
+// Pallas kernel's cast) and V read row-major through the transpose bit.
+template <int DV, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                       __grid_constant__ const CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int Lq, int Lk, int D, float scale_log2, int rows) {
+  using T = Tiles<DV>;
+  constexpr int TB = T::TB, ST = T::STAGES;
+  // a stage's barriers advance one phase per use; each use must be waited
+  // on by the same warpgroups, so the splits (<= NC) must divide the ring
+  static_assert(ST % NC == 0, "ring depth must be a multiple of the warpgroups");
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<DV> sm(smem_raw, NC);
+  const int S = NC / rows;
+  const int b = blockIdx.y, q0 = blockIdx.x * rows * TILE;
+  const int nt = (Lk + TILE - 1) / TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) sm.init(1, rows);
+  __syncthreads();
+
+  if (warp == NC * 4) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(sm.once, rows * TB);
+      for (int i = 0; i < rows; ++i) tma_tile<T::CB>(sm.own + i * TB, &tq, sm.once, q0 + i * TILE, b);
+      for (int j = 0; j < nt; ++j) {
+        wait_empty(sm, j);
+        produce_stage(sm, j, &tk, &tv, b);
       }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, rt = wg / S, sp = wg % S;
+  const int t = threadIdx.x & 127, w16 = (t >> 5) * 16, g = lane >> 2, tig = lane & 3;
+  const uint32_t qt = sm.own + rt * TB;
+  const int row0 = q0 + rt * TILE;
+  float oacc[T::NACC], sacc[32];
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) oacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // rows g, g + 8 (l: this lane's columns)
+  mbar_wait_warp(sm.once, 0);
+
+  for (int j = sp; j < nt; j += S) {
+    const int s = j % ST;
+    const uint32_t kt = sm.stage(s), vt = kt + TB;
+    mbar_wait_warp(sm.full(s), (j / ST) & 1);
+    pin(sacc);
+    wg_fence();
+    mma_abt<DV>(sacc, qt, kt);
+    wg_commit();
+    wg_wait0();
+    pin(sacc);
+    if ((j + 1) * TILE > Lk) {   // keys past Lk (zero rows of the K tile) drop out
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * TILE + jn * 8 + tig * 2 + e >= Lk) sacc[4 * jn + e] = sacc[4 * jn + 2 + e] = NEG;
     }
     float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int jn = 0; jn < 8; ++jn) {
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const bool ok = k0 + j * 8 + tig * 2 + t < Lk;
-        s[j][t] = ok ? s[j][t] * scale_log2 : NEG;
-        s[j][t + 2] = ok ? s[j][t + 2] * scale_log2 : NEG;
-        mx0 = fmaxf(mx0, s[j][t]);
-        mx1 = fmaxf(mx1, s[j][t + 2]);
+      for (int e = 0; e < 2; ++e) {
+        mx0 = fmaxf(mx0, sacc[4 * jn + e]);
+        mx1 = fmaxf(mx1, sacc[4 * jn + 2 + e]);
       }
     }
-    const float mn0 = fmaxf(m0, max4(mx0)), mn1 = fmaxf(m1, max4(mx1));
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    // running maxima in the scaled log2 domain; p = 2^(s * scale_log2 - m)
+    const float mn0 = fmaxf(m0, max4(mx0) * scale_log2), mn1 = fmaxf(m1, max4(mx1) * scale_log2);
+    const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int jn = 0; jn < 8; ++jn) {
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        s[j][t] = exp2f(s[j][t] - mn0);
-        s[j][t + 2] = exp2f(s[j][t + 2] - mn1);
-        ps0 += s[j][t];
-        ps1 += s[j][t + 2];
+      for (int e = 0; e < 2; ++e) {
+        sacc[4 * jn + e] = ex2(fmaf(sacc[4 * jn + e], scale_log2, -mn0));
+        sacc[4 * jn + 2 + e] = ex2(fmaf(sacc[4 * jn + 2 + e], scale_log2, -mn1));
+        ps0 += sacc[4 * jn + e];
+        ps1 += sacc[4 * jn + 2 + e];
       }
     }
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
 #pragma unroll
-    for (int i = 0; i < ND * 2; ++i) {
-      acc[i][0] *= al0;
-      acc[i][1] *= al0;
-      acc[i][2] *= al1;
-      acc[i][3] *= al1;
+    for (int i = 0; i < T::NACC; i += 4) {
+      oacc[i] *= al0;
+      oacc[i + 1] *= al0;
+      oacc[i + 2] *= al1;
+      oacc[i + 3] *= al1;
     }
+    uint32_t pa[4][4];
+    pack_a(pa, sacc);
+    pin(oacc);
+    pin(pa);
+    wg_fence();
+    mma_rows<DV>(oacc, pa, vt);
+    wg_commit();
+    wg_wait0();
+    pin(oacc);
+    pin(pa);
+    mbar_arrive(sm.empty(s));
+  }
+
+  if (S > 1) {  // merge the splits' softmax states and sums into warpgroup sp = 0's
+    constexpr int NP = T::NACC + 4;
+    float* buf = reinterpret_cast<float*>(sm.base);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1, NC * 128);
+    if (sp > 0) {
+      float* dst = part_slot(buf, NP, rt, sp, S, t);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // 16 keys per step: S n-tiles 2kk, 2kk+1
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int i = 0; i < T::NACC; ++i) dst[i * 128] = oacc[i];
+      dst[T::NACC * 128] = m0;
+      dst[(T::NACC + 1) * 128] = m1;
+      dst[(T::NACC + 2) * 128] = l0;
+      dst[(T::NACC + 3) * 128] = l1;
+    }
+    bar_sync(1, NC * 128);
+    if (sp > 0) return;
+    for (int s2 = 1; s2 < S; ++s2) {
+      const float* src = part_slot(buf, NP, rt, s2, S, t);
+      const float om0 = src[T::NACC * 128], om1 = src[(T::NACC + 1) * 128];
+      const float n0 = fmaxf(m0, om0), n1 = fmaxf(m1, om1);
+      const float a0 = ex2(m0 - n0), b0 = ex2(om0 - n0);
+      const float a1 = ex2(m1 - n1), b1 = ex2(om1 - n1);
+      l0 = l0 * a0 + src[(T::NACC + 2) * 128] * b0;
+      l1 = l1 * a1 + src[(T::NACC + 3) * 128] * b1;
 #pragma unroll
-      for (int dn = 0; dn < ND * 2; ++dn) {
-        const __nv_bfloat16* vr = &sVt[(dn * 8 + g) * SV + kk * 16 + tig * 2];
-        mma_bf16(acc[dn], pa, ld32(vr), ld32(vr + 8));
+      for (int i = 0; i < T::NACC; i += 4) {
+        oacc[i] = oacc[i] * a0 + src[i * 128] * b0;
+        oacc[i + 1] = oacc[i + 1] * a0 + src[(i + 1) * 128] * b0;
+        oacc[i + 2] = oacc[i + 2] * a1 + src[(i + 2) * 128] * b1;
+        oacc[i + 3] = oacc[i + 3] * a1 + src[(i + 3) * 128] * b1;
       }
+      m0 = n0;
+      m1 = n1;
     }
   }
   l0 = sum4(l0);
   l1 = sum4(l1);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r0 + g + half * 8;
-    if (row >= Lq) continue;
-    const float l = half ? l1 : l0;
-    const size_t base = ((size_t)b * Lq + row) * D;
-#pragma unroll
-    for (int dn = 0; dn < ND * 2; ++dn) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int d = dn * 8 + tig * 2 + t;
-        if (d < D) o[base + d] = __float2bfloat16(acc[dn][half * 2 + t] / l);
+  store_rows<DV>(o + (size_t)b * Lq * D, oacc, row0, Lq, D, 1.f / l0, 1.f / l1, w16, g, tig);
+  if (tig == 0) {
+    const int r = row0 + w16 + g;
+    if (r < Lq) lse[(size_t)b * Lq + r] = (m0 + log2f(l0)) * (1.0f / LOG2E);   // natural log
+    if (r + 8 < Lq) lse[(size_t)b * Lq + r + 8] = (m1 + log2f(l1)) * (1.0f / LOG2E);
+  }
+}
+
+// Backward, dq.  A consumer warpgroup computes delta = rowsum(dO o O) of
+// its 64 rows (and writes it for the dk/dv kernel), then per key tile
+// S = Q K^T and dP = dO V^T (wgmma from shared memory), dS = P (dP - delta)
+// rounded to bf16 in registers, and dQ += dS K with K read row-major.
+template <int DV, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, 1)
+flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                          __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tdo,
+                          const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int D, float scale,
+                          int rows) {
+  using T = Tiles<DV>;
+  constexpr int TB = T::TB, ST = T::STAGES;
+  // a stage's barriers advance one phase per use; each use must be waited
+  // on by the same warpgroups, so the splits (<= NC) must divide the ring
+  static_assert(ST % NC == 0, "ring depth must be a multiple of the warpgroups");
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<DV> sm(smem_raw, 2 * NC);   // Q tiles, then dO tiles
+  float* sdelta = sm.stat;                // [NC][64]
+  const int S = NC / rows;
+  const int b = blockIdx.y, q0 = blockIdx.x * rows * TILE;
+  const int nt = (Lk + TILE - 1) / TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) sm.init(1, rows);
+  __syncthreads();
+
+  if (warp == NC * 4) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(sm.once, 2 * rows * TB);
+      for (int i = 0; i < rows; ++i) {
+        tma_tile<T::CB>(sm.own + i * TB, &tq, sm.once, q0 + i * TILE, b);
+        tma_tile<T::CB>(sm.own + (NC + i) * TB, &tdo, sm.once, q0 + i * TILE, b);
+      }
+      for (int j = 0; j < nt; ++j) {
+        wait_empty(sm, j);
+        produce_stage(sm, j, &tk, &tv, b);
       }
     }
-    if (tig == 0) lse[(size_t)b * Lq + row] = ((half ? m1 : m0) + log2f(l)) * (1.0f / LOG2E);
+    return;
   }
-}
 
-template <int ND>
-cudaError_t fwd_mma_launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                           int B, int Lq, int Lk, int D, float scale, cudaStream_t s) {
-  dim3 grid((Lq + TILE - 1) / TILE, B);
-  flash_fwd_mma_kernel<ND><<<grid, 128, 0, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, lse, Lq, Lk, D, scale * LOG2E);
-  return cudaGetLastError();
-}
-
-
-// Tensor-core backward for bf16 at D <= 80, the same fragment scheme as the
-// forward.  dq: one block per 64-row q tile loops over k tiles,
-// S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K.  dk/dv: one block
-// per 64-key tile loops over q tiles, S^T = K Q^T, dP^T = V dO^T,
-// dV += P^T dO, dK += dS^T Q.  P and dS are rounded to bf16 before their
-// products, as the Pallas kernels cast them.
-
-// the (16 x DP) A fragments of rows [r0, r0 + 16) of a shared-memory tile
-template <int ND>
-__device__ __forceinline__ void load_a_frags(uint32_t a[ND][4], const __nv_bfloat16* t, int r0,
-                                             int stride, int g, int tig) {
-#pragma unroll
-  for (int kc = 0; kc < ND; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    a[kc][0] = ld32(&t[(r0 + g) * stride + c]);
-    a[kc][1] = ld32(&t[(r0 + g + 8) * stride + c]);
-    a[kc][2] = ld32(&t[(r0 + g) * stride + c + 8]);
-    a[kc][3] = ld32(&t[(r0 + g + 8) * stride + c + 8]);
-  }
-}
-
-// acc[j] (16 x 8 tiles j = 0..7) = A (16 x DP) times the 64 rows of B
-// (row-major [n][d] tile): the "x B^T" product of S = Q K^T and its kin
-template <int ND>
-__device__ __forceinline__ void mma_abt(float acc[8][4], const uint32_t a[ND][4],
-                                        const __nv_bfloat16* bt, int stride, int g, int tig) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < ND; ++kc) {
-      const __nv_bfloat16* r = &bt[(j * 8 + g) * stride + kc * 16 + tig * 2];
-      mma_bf16(acc[j], a[kc], ld32(r), ld32(r + 8));
+  const int wg = warp >> 2, rt = wg / S, sp = wg % S;
+  const int t = threadIdx.x & 127, w16 = (t >> 5) * 16, g = lane >> 2, tig = lane & 3;
+  const uint32_t qt = sm.own + rt * TB, ot = sm.own + (NC + rt) * TB;
+  const int row0 = q0 + rt * TILE;
+  {  // delta: two threads per row, bf16 pairs, coalesced along the row
+    const int r = t >> 1, row = row0 + r;
+    float a = 0.f;
+    if (row < Lq) {
+      const size_t base = ((size_t)b * Lq + row) * D;
+      for (int c = (t & 1) * 2; c < D; c += 4) {
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + base + c));
+        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + base + c));
+        a = fmaf(x.x, y.x, fmaf(x.y, y.y, a));
+      }
     }
-  }
-}
-
-// out[dn] += P (16 x 64, accumulator layout, rounded to bf16) times the
-// transposed tile bt[d][n] (the 64-row operand stored d-major)
-template <int ND>
-__device__ __forceinline__ void mma_pb(float out[ND * 2][4], const float p[8][4],
-                                       const __nv_bfloat16* bt, int g, int tig) {
-  constexpr int SV = TILE + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int dn = 0; dn < ND * 2; ++dn) {
-      const __nv_bfloat16* r = &bt[(dn * 8 + g) * SV + kk * 16 + tig * 2];
-      mma_bf16(out[dn], pa, ld32(r), ld32(r + 8));
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    if ((t & 1) == 0) {
+      sdelta[wg * 64 + r] = a;
+      if (row < Lq && sp == 0) delta[(size_t)b * Lq + row] = a;
     }
+    bar_sync(2 + wg, 128);
   }
-}
-
-// rows [r0, r0 + TILE) of a (L, D) bf16 matrix into t[r][d] (stride SQ) and,
-// when tt is given, into tt[d][r] (stride SV); zero outside the matrix
-template <int DP>
-__device__ __forceinline__ void load_bf16_tile(__nv_bfloat16* t, __nv_bfloat16* tt,
-                                               const __nv_bfloat16* g, int r0, int L, int D) {
-  constexpr int SQ = DP + 8, SV = TILE + 8;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < TILE * DP; e += 128) {
-    const int r = e / DP, d = e - r * DP;
-    const __nv_bfloat16 x = (r0 + r < L && d < D) ? g[(size_t)(r0 + r) * D + d] : zero;
-    if (t != nullptr) t[r * SQ + d] = x;
-    if (tt != nullptr) tt[d * SV + r] = x;
-  }
-}
-
-template <int ND>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int D, float scale) {
-  constexpr int DP = ND * 16, SQ = DP + 8, SV = TILE + 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[TILE * SQ];
-  __shared__ __align__(16) __nv_bfloat16 sV[TILE * SQ];
-  __shared__ __align__(16) __nv_bfloat16 sKt[DP * SV];
-  const int b = blockIdx.y, q0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int r0 = warp * 16;
-  // Q and dO fragments, staged through the K and V buffers
-  load_bf16_tile<DP>(sK, nullptr, q + (size_t)b * Lq * D, q0, Lq, D);
-  load_bf16_tile<DP>(sV, nullptr, dout + (size_t)b * Lq * D, q0, Lq, D);
-  __syncthreads();
-  uint32_t qa[ND][4], oa[ND][4];
-  load_a_frags<ND>(qa, sK, r0, SQ, g, tig);
-  load_a_frags<ND>(oa, sV, r0, SQ, g, tig);
   float lse2[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
+    const int row = row0 + w16 + g + 8 * h;
     lse2[h] = row < Lq ? lse[(size_t)b * Lq + row] * LOG2E : 0.f;
-    dl[h] = row < Lq ? delta[(size_t)b * Lq + row] : 0.f;
+    dl[h] = sdelta[wg * 64 + w16 + g + 8 * h];
   }
   const float scale_log2 = scale * LOG2E;
-  float acc[ND * 2][4];
+  float acc[T::NACC], sacc[32], pacc[32];
 #pragma unroll
-  for (int i = 0; i < ND * 2; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+  mbar_wait_warp(sm.once, 0);
 
-  for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    __syncthreads();
-    load_bf16_tile<DP>(sK, sKt, k + (size_t)b * Lk * D, k0, Lk, D);
-    load_bf16_tile<DP>(sV, nullptr, v + (size_t)b * Lk * D, k0, Lk, D);
-    __syncthreads();
-    float sp[8][4], dp[8][4];
-    mma_abt<ND>(sp, qa, sK, SQ, g, tig);
-    mma_abt<ND>(dp, oa, sV, SQ, g, tig);
+  for (int j = sp; j < nt; j += S) {
+    const int s = j % ST;
+    const uint32_t kt = sm.stage(s), vt = kt + TB;
+    mbar_wait_warp(sm.full(s), (j / ST) & 1);
+    pin(sacc);
+    pin(pacc);
+    wg_fence();
+    mma_abt<DV>(sacc, qt, kt);
+    wg_commit();
+    mma_abt<DV>(pacc, ot, vt);
+    wg_commit();
+    wg_wait1();   // S is done; P is computed while dP = dO V^T runs
+    pin(sacc);
+    const bool ragged = (j + 1) * TILE > Lk;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int jn = 0; jn < 8; ++jn) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const bool ok = k0 + j * 8 + tig * 2 + (e & 1) < Lk;
-        const float p = ok ? exp2f(sp[j][e] * scale_log2 - lse2[h]) : 0.f;
-        sp[j][e] = p * (dp[j][e] - dl[h]);   // dS
+        const bool ok = !ragged || j * TILE + jn * 8 + tig * 2 + (e & 1) < Lk;
+        sacc[4 * jn + e] = ok ? ex2(fmaf(sacc[4 * jn + e], scale_log2, -lse2[e >> 1])) : 0.f;
       }
     }
-    mma_pb<ND>(acc, sp, sKt, g, tig);
+    wg_wait0();
+    pin(pacc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] *= pacc[i] - dl[(i >> 1) & 1];   // dS
+    uint32_t da[4][4];
+    pack_a(da, sacc);
+    pin(acc);
+    pin(da);
+    wg_fence();
+    mma_rows<DV>(acc, da, kt);
+    wg_commit();
+    wg_wait0();
+    pin(acc);
+    pin(da);
+    mbar_arrive(sm.empty(s));
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= Lq) continue;
-    const size_t base = ((size_t)b * Lq + row) * D;
-#pragma unroll
-    for (int dn = 0; dn < ND * 2; ++dn) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int d = dn * 8 + tig * 2 + t;
-        if (d < D) dq[base + d] = __float2bfloat16(acc[dn][h * 2 + t] * scale);
-      }
-    }
-  }
+  if (S > 1 && !merge_sum<T::NACC>(reinterpret_cast<float*>(sm.base), acc, rt, sp, S, t, NC * 128))
+    return;
+  store_rows<DV>(dq + (size_t)b * Lq * D, acc, row0, Lq, D, scale, scale, w16, g, tig);
 }
 
-template <int ND>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int D, float scale) {
-  constexpr int DP = ND * 16, SQ = DP + 8, SV = TILE + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[TILE * SQ];
-  __shared__ __align__(16) __nv_bfloat16 sO[TILE * SQ];
-  __shared__ __align__(16) __nv_bfloat16 sQt[DP * SV];
-  __shared__ __align__(16) __nv_bfloat16 sOt[DP * SV];
-  __shared__ float sL[TILE], sD[TILE];
-  const int b = blockIdx.y, k0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int r0 = warp * 16;  // key rows of this warp
-  load_bf16_tile<DP>(sQ, nullptr, k + (size_t)b * Lk * D, k0, Lk, D);
-  load_bf16_tile<DP>(sO, nullptr, v + (size_t)b * Lk * D, k0, Lk, D);
+// Backward, dk and dv.  A consumer warpgroup keeps its 64 key rows of K and
+// V in shared memory and per q tile runs S^T = K Q^T and dP^T = V dO^T,
+// P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta), both rounded to bf16
+// in registers, then dV += P^T dO and dK += dS^T Q with dO and Q read
+// row-major.  The producer warp brings each q tile's LSE and delta (written
+// by the dq kernel) into the stage beside its Q and dO tiles.
+template <int DV, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, 1)
+flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                           __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Lq,
+                           int Lk, int D, float scale, int rows) {
+  using T = Tiles<DV>;
+  constexpr int TB = T::TB, ST = T::STAGES;
+  // a stage's barriers advance one phase per use; each use must be waited
+  // on by the same warpgroups, so the splits (<= NC) must divide the ring
+  static_assert(ST % NC == 0, "ring depth must be a multiple of the warpgroups");
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<DV> sm(smem_raw, 2 * NC);   // K tiles, then V tiles
+  float* sstat = sm.stat;                 // [ST][lse * log2(e), delta][64]
+  const int S = NC / rows;
+  const int b = blockIdx.y, k0 = blockIdx.x * rows * TILE;
+  const int nt = (Lq + TILE - 1) / TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) sm.init(32, rows);
   __syncthreads();
-  uint32_t ka[ND][4], va[ND][4];
-  load_a_frags<ND>(ka, sQ, r0, SQ, g, tig);
-  load_a_frags<ND>(va, sO, r0, SQ, g, tig);
-  const float scale_log2 = scale * LOG2E;
-  float acc_k[ND * 2][4], acc_v[ND * 2][4];
-#pragma unroll
-  for (int i = 0; i < ND * 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
 
-  for (int q0 = 0; q0 < Lq; q0 += TILE) {
-    __syncthreads();
-    load_bf16_tile<DP>(sQ, sQt, q + (size_t)b * Lq * D, q0, Lq, D);
-    load_bf16_tile<DP>(sO, sOt, dout + (size_t)b * Lq * D, q0, Lq, D);
-    if (threadIdx.x < TILE) {
-      const int qi = q0 + threadIdx.x;
-      sL[threadIdx.x] = qi < Lq ? lse[(size_t)b * Lq + qi] * LOG2E : 0.f;
-      sD[threadIdx.x] = qi < Lq ? delta[(size_t)b * Lq + qi] : 0.f;
+  if (warp == NC * 4) {  // producer warp: lane 0 issues the TMA loads, all lanes the statistics
+    if (lane == 0) {
+      mbar_expect_tx(sm.once, 2 * rows * TB);
+      for (int i = 0; i < rows; ++i) {
+        tma_tile<T::CB>(sm.own + i * TB, &tk, sm.once, k0 + i * TILE, b);
+        tma_tile<T::CB>(sm.own + (NC + i) * TB, &tv, sm.once, k0 + i * TILE, b);
+      }
     }
-    __syncthreads();
-    float st[8][4], dpt[8][4];
-    mma_abt<ND>(st, ka, sQ, SQ, g, tig);
-    mma_abt<ND>(dpt, va, sO, SQ, g, tig);
+    for (int j = 0; j < nt; ++j) {
+      wait_empty(sm, j);
+      float* st = sstat + (j % ST) * 128;
+      for (int r = lane; r < TILE; r += 32) {
+        const int qi = j * TILE + r;
+        st[r] = qi < Lq ? lse[(size_t)b * Lq + qi] * LOG2E : 0.f;
+        st[64 + r] = qi < Lq ? delta[(size_t)b * Lq + qi] : 0.f;
+      }
+      if (lane == 0)
+        produce_stage(sm, j, &tq, &tdo, b);
+      else
+        mbar_arrive(sm.full(j % ST));
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, rt = wg / S, sp = wg % S;
+  const int t = threadIdx.x & 127, w16 = (t >> 5) * 16, g = lane >> 2, tig = lane & 3;
+  const uint32_t kt = sm.own + rt * TB, vt = sm.own + (NC + rt) * TB;
+  const int row0 = k0 + rt * TILE;
+  const float scale_log2 = scale * LOG2E;
+  float acc_k[T::NACC], acc_v[T::NACC], sacc[32], pacc[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < T::NACC; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+  mbar_wait_warp(sm.once, 0);
+
+  for (int j = sp; j < nt; j += S) {
+    const int s = j % ST;
+    const uint32_t qt = sm.stage(s), ot = qt + TB;
+    const float* st = sstat + s * 128;
+    mbar_wait_warp(sm.full(s), (j / ST) & 1);
+    pin(sacc);
+    pin(pacc);
+    wg_fence();
+    mma_abt<DV>(sacc, kt, qt);   // S^T: key rows, q columns
+    wg_commit();
+    mma_abt<DV>(pacc, vt, ot);   // dP^T
+    wg_commit();
+    wg_wait1();   // S^T is done; P^T and dV run while dP^T does
+    pin(sacc);
+    const bool ragged = (j + 1) * TILE > Lq;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int c = jn * 8 + tig * 2;   // q column of the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(st + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + tig * 2 + (e & 1);  // q column of the tile
-        const float p = q0 + c < Lq ? exp2f(st[j][e] * scale_log2 - sL[c]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sD[c]);     // dS^T
+        const bool ok = !ragged || j * TILE + c + (e & 1) < Lq;
+        sacc[4 * jn + e] =
+            ok ? ex2(fmaf(sacc[4 * jn + e], scale_log2, -((e & 1) ? l2.y : l2.x))) : 0.f;
       }
     }
-    mma_pb<ND>(acc_v, st, sOt, g, tig);
-    mma_pb<ND>(acc_k, dpt, sQt, g, tig);
-  }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, sacc);
+    pin(acc_v);
+    pin(pa);
+    wg_fence();
+    mma_rows<DV>(acc_v, pa, ot);
+    wg_commit();
+    wg_wait1();   // dP^T is done; dS^T and dK run while dV does
+    pin(pacc);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = k0 + r0 + g + 8 * h;
-    if (row >= Lk) continue;
-    const size_t base = ((size_t)b * Lk + row) * D;
+    for (int jn = 0; jn < 8; ++jn) {
+      const float2 dd = *reinterpret_cast<const float2*>(st + 64 + jn * 8 + tig * 2);
 #pragma unroll
-    for (int dn = 0; dn < ND * 2; ++dn) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int d = dn * 8 + tig * 2 + t;
-        if (d < D) {
-          dk[base + d] = __float2bfloat16(acc_k[dn][h * 2 + t] * scale);
-          dv[base + d] = __float2bfloat16(acc_v[dn][h * 2 + t]);
-        }
-      }
+      for (int e = 0; e < 4; ++e)
+        pacc[4 * jn + e] = sacc[4 * jn + e] * (pacc[4 * jn + e] - ((e & 1) ? dd.y : dd.x));
     }
+    pack_a(da, pacc);
+    pin(acc_k);
+    pin(da);
+    wg_fence();
+    mma_rows<DV>(acc_k, da, qt);
+    wg_commit();
+    wg_wait0();
+    pin(acc_k);
+    pin(acc_v);
+    pin(pa);
+    pin(da);
+    mbar_arrive(sm.empty(s));
   }
+  if (S > 1) {
+    float both[2 * T::NACC];
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) both[i] = acc_k[i], both[T::NACC + i] = acc_v[i];
+    if (!merge_sum<2 * T::NACC>(reinterpret_cast<float*>(sm.base), both, rt, sp, S, t, NC * 128))
+      return;
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) acc_k[i] = both[i], acc_v[i] = both[T::NACC + i];
+  }
+  store_rows<DV>(dk + (size_t)b * Lk * D, acc_k, row0, Lk, D, scale, scale, w16, g, tig);
+  store_rows<DV>(dv + (size_t)b * Lk * D, acc_v, row0, Lk, D, 1.f, 1.f, w16, g, tig);
 }
 
-template <int ND>
-cudaError_t bwd_mma_launch(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                           void* dv, int B, int Lq, int Lk, int D, float scale, cudaStream_t s) {
+// ------------------------------------------------------------ host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (B, L, D) tensor as a 3-D TMA map {D, L, B} of 64 x 64 boxes with
+// the 128-byte swizzle.  D is a multiple of 8 (16-byte rows); columns >= D
+// and rows >= L of a box read as zero.
+bool tensor_map(CUtensorMap* m, const void* p, int B, int L, int D) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || D % 8 != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t el[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box, el,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once per kernel: its dynamic shared memory, and the whole carveout for
+// shared memory so that two blocks fit an SM where their registers allow.
+template <typename Kernel>
+cudaError_t prepare(Kernel k, size_t bytes) {
+  cudaError_t e = allow_smem(k, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return e;
+}
+
+// dynamic shared memory of a kernel (the layout of Smem): 1 KB of
+// alignment slack, `own` 64-row tiles, the ring, barriers and statistics
+template <int DV>
+constexpr size_t smem_bytes(int own, int stat_floats) {
+  return 1024 + (size_t)(own + 2 * Tiles<DV>::STAGES) * Tiles<DV>::TB + 16 * Tiles<DV>::STAGES +
+         16 + 4 * stat_floats;
+}
+
+// consumer warpgroups of a block: four in the forward at D <= 40; two at
+// D = 80, whose accumulators would not fit four warpgroups' registers
+// without spilling, and in the backward kernels
+template <int DV>
+constexpr int fwd_nc() { return DV > 64 ? 2 : 4; }
+constexpr int BWD_NC = 2;
+
+template <int DV>
+cudaError_t fwd_wgmma_launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                             int Lq, int Lk, int D, float scale, int rows, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  constexpr int NC = fwd_nc<DV>();
+  if (rows < 1 || NC % rows != 0 || !tensor_map(&tq, q, B, Lq, D) ||
+      !tensor_map(&tk, k, B, Lk, D) || !tensor_map(&tv, v, B, Lk, D))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<DV>(NC, 0);
+  auto kern = flash_fwd_wgmma_kernel<DV, NC>;
+  static const cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int per_block = rows * TILE;
+  kern<<<dim3((Lq + per_block - 1) / per_block, B), NC * 128 + 32, smem, s>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, lse, Lq, Lk, D, scale * LOG2E, rows);
+  return cudaGetLastError();
+}
+
+template <int DV>
+cudaError_t bwd_wgmma_launch(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                             void* dv, int B, int Lq, int Lk, int D, float scale, int rows_q,
+                             int rows_k, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  const int rows = B * Lq;
-  flash_delta_kernel<bf><<<(rows + 255) / 256, 256, 0, s>>>((const bf*)dout, (const bf*)o, delta,
-                                                            rows, D);
+  CUtensorMap tq, tk, tv, tdo;
+  if (rows_q < 1 || rows_k < 1 || BWD_NC % rows_q != 0 || BWD_NC % rows_k != 0 ||
+      !tensor_map(&tq, q, B, Lq, D) || !tensor_map(&tk, k, B, Lk, D) ||
+      !tensor_map(&tv, v, B, Lk, D) || !tensor_map(&tdo, dout, B, Lq, D))
+    return cudaErrorInvalidValue;
+  constexpr int threads = BWD_NC * 128 + 32;
+  const size_t smem_dq = smem_bytes<DV>(2 * BWD_NC, 64 * BWD_NC);
+  auto kdq = flash_bwd_dq_wgmma_kernel<DV, BWD_NC>;
+  static const cudaError_t e_dq = prepare(kdq, smem_dq);
+  if (e_dq != cudaSuccess) return e_dq;
+  const int pq = rows_q * TILE, pk = rows_k * TILE;
+  kdq<<<dim3((Lq + pq - 1) / pq, B), threads, smem_dq, s>>>(
+      tq, tk, tv, tdo, (const bf*)o, (const bf*)dout, lse, delta, (bf*)dq, Lq, Lk, D, scale,
+      rows_q);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_mma_kernel<ND><<<dim3((Lq + TILE - 1) / TILE, B), 128, 0, s>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta, (bf*)dq, Lq, Lk, D,
-      scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  flash_bwd_dkv_mma_kernel<ND><<<dim3((Lk + TILE - 1) / TILE, B), 128, 0, s>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta, (bf*)dk, (bf*)dv, Lq,
-      Lk, D, scale);
+  const size_t smem_kv = smem_bytes<DV>(2 * BWD_NC, 128 * Tiles<DV>::STAGES);
+  auto kkv = flash_bwd_dkv_wgmma_kernel<DV, BWD_NC>;
+  static const cudaError_t e_kv = prepare(kkv, smem_kv);
+  if (e_kv != cudaSuccess) return e_kv;
+  kkv<<<dim3((Lk + pk - 1) / pk, B), threads, smem_kv, s>>>(
+      tq, tk, tv, tdo, lse, delta, (bf*)dk, (bf*)dv, Lq, Lk, D, scale, rows_k);
   return cudaGetLastError();
 }
 
@@ -693,16 +1130,18 @@ cudaError_t bwd_launch(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace
 
-// bf16 (dtype 1) runs on the tensor cores; float32 (dtype 0) on the CUDA
-// cores, with D/4 rounded up to 10 or 20 columns per thread.  The main path
-// has D 40 and 80 only; D > 80 is refused.
+// bf16 (dtype 1) runs the TMA + wgmma kernels with the row tiles per block
+// chosen by the wrapper (fwd, dq: over the queries; dk/dv: over the keys);
+// float32 (dtype 0) the CUDA-core kernels, with D/4 rounded up to 10 or 20 columns per
+// thread.  The main path has D 40 and 80 only; D > 80 is refused.
 extern "C" int gd_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                            int B, int Lq, int Lk, int D, float scale, int dtype, void* stream) {
+                            int B, int Lq, int Lk, int D, float scale, int dtype, int rows,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D < 1 || D > 80) return cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D <= 48) return fwd_mma_launch<3>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
-    return fwd_mma_launch<5>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
+    if (D <= 40) return fwd_wgmma_launch<40>(q, k, v, o, lse, B, Lq, Lk, D, scale, rows, st);
+    return fwd_wgmma_launch<80>(q, k, v, o, lse, B, Lq, Lk, D, scale, rows, st);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   if (D <= 40) return fwd_launch<float, 10>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
@@ -712,13 +1151,15 @@ extern "C" int gd_flash_fwd(const void* q, const void* k, const void* v, void* o
 extern "C" int gd_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
                             void* dv, int B, int Lq, int Lk, int D, float scale, int dtype,
-                            void* stream) {
+                            int rows_q, int rows_k, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D < 1 || D > 80) return cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D <= 48)
-      return bwd_mma_launch<3>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale, st);
-    return bwd_mma_launch<5>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale, st);
+    if (D <= 40)
+      return bwd_wgmma_launch<40>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale,
+                                  rows_q, rows_k, st);
+    return bwd_wgmma_launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale,
+                                rows_q, rows_k, st);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   if (D <= 40)

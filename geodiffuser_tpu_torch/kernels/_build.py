@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "gd_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    "gd_flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+    "gd_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    "gd_flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "gd_corr_spans": [_I],
     "gd_corr_fwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "gd_corr_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],

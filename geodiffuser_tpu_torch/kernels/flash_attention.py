@@ -9,14 +9,21 @@ and takes the plain version only for CPU tensors.  Operands are
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from geodiffuser_tpu_torch.kernels import _build
 
-# launches of each wrapper's kernel (chip_smoke.py reads and resets them)
+# launches of each wrapper's kernel, and of each wrapper per shape
+# (name, B, Lq, Lk, D) (chip_smoke.py reads and resets both)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+SHAPES: dict = {}
+
+SMS = 132      # streaming multiprocessors of the H100 SXM
+TILE = 64      # rows of one operand tile (one wgmma warpgroup's M)
+BOX_COLS = 64  # columns of one TMA box (128 bytes of bf16, the swizzle width)
 
 
 def use_flash(lq: int, lk: int) -> bool:
@@ -66,6 +73,81 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# Tile plan of the bf16 kernels
+# ---------------------------------------------------------------------------
+
+def _tiles(n: int, rows: int) -> int:
+    return -(-n // rows)
+
+
+# consumer warpgroups of a block: the forward at D <= 40 takes four; at
+# D = 80 (twice the output accumulators) and in the backward kernels two
+FWD_WARPGROUPS = {40: 4, 80: 2}
+BWD_WARPGROUPS = 2
+
+
+def row_tiles(b: int, rows: int, warpgroups: int) -> int:
+    """64-row tiles of the output axis per block: as many as the block has
+    warpgroups (each loaded tile of the loop axis then feeds them all), halved
+    while that leaves fewer than ~one block per SM, but to no fewer than half
+    the warpgroups.  The warpgroups of a row tile split the loop axis between
+    them; a four-way split feeds each loaded tile to one warpgroup only and
+    measured slower than the fewer blocks of a two-way split (PERF.md)."""
+    r = warpgroups
+    while r > max(1, warpgroups // 2) and b * _tiles(rows, r * TILE) < SMS - SMS // 10:
+        r //= 2
+    return r
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(b: int, lq: int, lk: int, d: int) -> dict:
+    """Launch plan of the bf16 kernels for (B, Lq, Lk, D) operands, as
+    `csrc/flash_attention.cu` derives it from the row tiles it is given:
+    the padded head width (the kernel variant), the TMA map of each operand
+    (dims and byte strides innermost first, 64 x 64 boxes) and, per kernel,
+    its grid, rows per block and the loop tiles each warpgroup of a row tile
+    takes.  Cached: callers read the returned dict and do not modify it."""
+    d8 = -(-d // 8) * 8
+    dv = 40 if d8 <= 40 else 80
+
+    def kernel(rows, loop, warpgroups):
+        r = row_tiles(b, rows, warpgroups)
+        splits = warpgroups // r
+        n = _tiles(loop, TILE)
+        return dict(warpgroups=warpgroups, row_tiles=r, splits=splits, rows_per_block=r * TILE,
+                    grid=(_tiles(rows, r * TILE), b), loop_tiles=n,
+                    tiles_per_warpgroup=tuple(len(range(sp, n, splits)) for sp in range(splits)))
+
+    def tmap(length):
+        return dict(dims=(d8, length, b), strides=(2 * d8, 2 * d8 * length),
+                    box=(BOX_COLS, TILE, 1), boxes_per_tile=_tiles(d8, BOX_COLS))
+
+    return dict(d_pad=d8, variant=dv, k_depth=-(-dv // 16) * 16, maps=dict(q=tmap(lq), k=tmap(lk)),
+                fwd=kernel(lq, lk, FWD_WARPGROUPS[dv]), dq=kernel(lq, lk, BWD_WARPGROUPS),
+                dkv=kernel(lk, lq, BWD_WARPGROUPS))
+
+
+def _tma_ready(x, d8: int):
+    """x with its head dim zero-padded to d8 (16-byte rows) and a 16-byte
+    aligned base, as TMA needs; x itself where it already is."""
+    if x.shape[-1] != d8:
+        x = torch.nn.functional.pad(x, (0, d8 - x.shape[-1]))
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x
+
+
+def _unpad(x, d: int):
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
+def _count(name: str, b: int, lq: int, lk: int, d: int) -> None:
+    LAUNCHES[name] += 1
+    key = (name, b, lq, lk, d)
+    SHAPES[key] = SHAPES.get(key, 0) + 1
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -84,14 +166,18 @@ def flash_fwd_cuda(q, k, v, scale: float):
     _check(q, k, v)
     b, lq, d = q.shape
     lk = k.shape[1]
+    plan = tile_plan(b, lq, lk, d)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(x, plan["d_pad"]) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, lq), dtype=torch.float32, device=q.device)
     err = _build.lib().gd_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, lq, lk, d, float(scale), _build.dtype_code(q), _build.stream_ptr(q))
+        b, lq, lk, q.shape[2], float(scale), _build.dtype_code(q), plan["fwd"]["row_tiles"],
+        _build.stream_ptr(q))
     _build.check(err, "gd_flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    _count("flash_fwd", b, lq, lk, d)
+    return _unpad(o, d), lse
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, scale: float):
@@ -103,15 +189,19 @@ def flash_bwd_cuda(q, k, v, o, lse, do, scale: float):
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, lq) \
             or lse.dtype != torch.float32 or do.dtype != q.dtype or o.dtype != q.dtype:
         raise ValueError("o, dO must match q and lse must be float32 (B, Lq)")
+    plan = tile_plan(b, lq, lk, d)
+    if q.dtype == torch.bfloat16:
+        q, k, v, o, do = (_tma_ready(x, plan["d_pad"]) for x in (q, k, v, o, do))
     delta = torch.empty((b, lq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _build.lib().gd_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, lq, lk, d, float(scale), _build.dtype_code(q), _build.stream_ptr(q))
+        b, lq, lk, q.shape[2], float(scale), _build.dtype_code(q), plan["dq"]["row_tiles"],
+        plan["dkv"]["row_tiles"], _build.stream_ptr(q))
     _build.check(err, "gd_flash_bwd")
-    LAUNCHES["flash_bwd"] += 1
-    return dq, dk, dv
+    _count("flash_bwd", b, lq, lk, d)
+    return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -7,6 +7,9 @@ seed and fed to both.  The CUDA kernels themselves are held against these
 plain versions on the card by chip_smoke.py.
 """
 
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +22,43 @@ from geodiffuser_tpu.kernels import removal_corr as jrc
 from geodiffuser_tpu_torch.kernels import flash_attention as fa
 from geodiffuser_tpu_torch.kernels import removal_corr as rc
 
+# every xdist worker imports this module at collection, so the heap trim
+# after each test (heap_trim.py) covers the whole session
+pytest_plugins = ("heap_trim",)
+
 torch.set_num_threads(1)
+
+
+def _rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def test_heap_trim_returns_freed_heap():
+    """Pages freed between live heap chunks stay resident until the trim
+    that heap_trim.py runs after every test hands them back."""
+    import heap_trim
+
+    malloc, free = heap_trim._LIBC.malloc, heap_trim._LIBC.free
+    malloc.restype, malloc.argtypes = ctypes.c_void_p, [ctypes.c_size_t]
+    free.argtypes = [ctypes.c_void_p]
+    n, size, keep_every = 32768, 4000, 16
+    chunks = [malloc(size) for _ in range(n)]
+    assert all(chunks)
+    for p in chunks:
+        ctypes.memset(p, 1, size)
+    kept = chunks[::keep_every]
+    for i, p in enumerate(chunks):
+        if i % keep_every:
+            free(p)
+    freed = (n - len(kept)) * size
+    try:
+        before = _rss()
+        assert heap_trim.trim()
+        assert before - _rss() >= freed // 2, (before, _rss(), freed)
+    finally:
+        for p in kept:
+            free(p)
 
 
 def _t(x):
@@ -31,7 +70,10 @@ FLASH_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 2, 256, 256, 40), (1, 2, 256, 512, 80)])
+# square maps at both head widths, and the warped-row blend's class: fewer
+# query rows than keys at D=40
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 2, 256, 256, 40), (1, 2, 256, 512, 80),
+                                         (1, 2, 256, 1024, 40)])
 def test_flash_forward_matches_pallas(b, h, lq, lk, d):
     rng = np.random.RandomState(0)
     q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for n in (lq, lk, lk))
@@ -49,7 +91,7 @@ def test_flash_forward_matches_pallas(b, h, lq, lk, d):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0], atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("lq,lk,d", [(256, 256, 40), (256, 512, 80)])
+@pytest.mark.parametrize("lq,lk,d", [(256, 256, 40), (256, 512, 80), (256, 1024, 40)])
 def test_flash_backward_matches_pallas(lq, lk, d):
     """Gradients through the port's wrapper (autograd of the plain version)
     and its plain backward formula against the Pallas backward."""
@@ -75,6 +117,128 @@ def test_flash_backward_matches_pallas(lq, lk, d):
     for g, ref, name in zip(got, g_ref, "qkv"):
         np.testing.assert_allclose(g.reshape(ref.shape).numpy(), np.asarray(ref), err_msg=name,
                                    **GRAD_TOL)
+
+
+# bf16 on both sides: the Pallas kernels round unnormalized probabilities
+# (online softmax) and the plain versions normalized ones to bf16 before P V,
+# and each rounds its output to bf16; the card's kernels are held to the
+# plain versions at the same 1.6e-2 of the largest value (chip_smoke.py)
+BF16_REL = 1.6e-2
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("lq,lk,d", [(256, 256, 40), (256, 1024, 40), (256, 512, 80)])
+def test_flash_bf16_plain_matches_pallas(lq, lk, d):
+    """The bf16 rounding points of the plain versions (P and dS cast to bf16
+    before their products, float32 LSE in natural log) against the Pallas
+    forward and backward run in bf16 in interpret mode."""
+    rng = np.random.RandomState(7)
+    b = 2
+    q, k, v = (rng.randn(b, n, d).astype(np.float32) for n in (lq, lk, lk))
+    co = rng.randn(b, lq, d).astype(np.float32)
+    scale = d ** -0.5
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)
+    tb = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+
+    def fwd(q_, k_, v_):
+        return jfa._flash_fwd_impl(q_, k_, v_, scale, 256, 256, True)
+
+    def loss(q_, k_, v_):
+        o_ = jfa.flash_attention(q_, k_, v_, scale, 256, 256, True)
+        return jnp.sum(o_.astype(jnp.float32) * jnp.asarray(co))
+
+    (o_ref, lse_ref), g_ref = jax.jit(lambda *a: (fwd(*a), jax.grad(loss, argnums=(0, 1, 2))(*a)))(
+        bf(q), bf(k), bf(v))
+    assert o_ref.dtype == jnp.bfloat16 and g_ref[0].dtype == jnp.bfloat16
+    o, lse = fa.flash_fwd_plain(tb(q), tb(k), tb(v), scale)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _rel(o.float().numpy(), o_ref) <= BF16_REL
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0], atol=1e-3)
+    # the gradient of sum(o * co): dO = co rounded to bf16, as the kernels receive it
+    got = fa.flash_bwd_plain(tb(q), tb(k), tb(v), o, lse, tb(co), scale)
+    for g, r, name in zip(got, g_ref, "qkv"):
+        assert g.dtype == torch.bfloat16
+        assert _rel(g.float().numpy(), r) <= BF16_REL, name
+
+
+MAIN_PATH_FLASH = [(16, 4096, 4096, 40), (8, 4096, 4096, 40), (16, 1024, 1024, 80),
+                   (8, 1024, 1024, 80), (8, 1024, 4096, 40), (8, 256, 1024, 80)]
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_FLASH + [(3, 200, 1100, 72),
+                                                     (1, 64, 64, 8), (2, 100, 70, 36)])
+def test_flash_tile_plan_covers_every_row_and_key(shape):
+    """The bf16 kernels' launch plan: every row of each kernel's output axis
+    lies in one block, every tile of its loop axis is taken by exactly one
+    warpgroup of each row tile, the TMA maps have 16-byte rows and boxes
+    that cover the padded head dim, and the wgmma depth covers it in k16
+    steps."""
+    b, lq, lk, d = shape
+    plan = fa.tile_plan(b, lq, lk, d)
+    assert plan["d_pad"] % 8 == 0 and d <= plan["d_pad"] < d + 8
+    assert plan["variant"] >= plan["d_pad"] and plan["variant"] in (40, 80)
+    assert plan["k_depth"] % 16 == 0 and plan["k_depth"] - 16 < plan["variant"] <= plan["k_depth"]
+    for name, length in (("q", lq), ("k", lk)):
+        m = plan["maps"][name]
+        assert m["dims"] == (plan["d_pad"], length, b)
+        assert all(st % 16 == 0 for st in m["strides"]) and m["strides"][0] == 2 * plan["d_pad"]
+        assert m["box"] == (64, 64, 1) and m["boxes_per_tile"] * 64 >= plan["variant"]
+    fwd_wgs = fa.FWD_WARPGROUPS[plan["variant"]]
+    for kern, rows, loop, wgs in (("fwd", lq, lk, fwd_wgs), ("dq", lq, lk, fa.BWD_WARPGROUPS),
+                                  ("dkv", lk, lq, fa.BWD_WARPGROUPS)):
+        k = plan[kern]
+        gx, gb = k["grid"]
+        assert k["warpgroups"] == wgs and k["row_tiles"] * k["splits"] == wgs
+        assert k["rows_per_block"] == 64 * k["row_tiles"]
+        assert gb == b and gx * k["rows_per_block"] >= rows > (gx - 1) * k["rows_per_block"]
+        assert k["loop_tiles"] * 64 >= loop > (k["loop_tiles"] - 1) * 64
+        per = k["tiles_per_warpgroup"]
+        assert len(per) == k["splits"] and sum(per) == k["loop_tiles"] and max(per) - min(per) <= 1
+        assert k["splits"] <= 2   # each loaded tile feeds at least half the warpgroups
+        if k["row_tiles"] > max(1, wgs // 2):   # more row tiles only where blocks fill the card
+            assert gx * gb >= fa.SMS - fa.SMS // 10
+
+
+def test_flash_tile_plan_main_path_choices():
+    """The per-shape choice recorded in PERF.md (each the fastest of the row
+    tiles measured on the card): the 64^2 maps' forward takes four row tiles
+    a block, the warped-row map at 64^2 two; the 32^2 maps trade row tiles
+    for blocks where the block count would fall under about one per SM."""
+    rows = {s: tuple(fa.tile_plan(*s)[k]["row_tiles"] for k in ("fwd", "dq", "dkv"))
+            for s in MAIN_PATH_FLASH}
+    assert rows == {(16, 4096, 4096, 40): (4, 2, 2), (8, 4096, 4096, 40): (4, 2, 2),
+                    (16, 1024, 1024, 80): (2, 2, 2), (8, 1024, 1024, 80): (1, 1, 1),
+                    (8, 1024, 4096, 40): (2, 1, 2), (8, 256, 1024, 80): (1, 1, 1)}
+
+
+def test_flash_tma_padding_and_counts():
+    """Host-side preparation of bf16 operands: the head dim is zero-padded
+    to a multiple of 8 and a base off 16-byte alignment is copied; launches
+    are counted per wrapper and per shape."""
+    x = torch.randn(2, 10, 36).to(torch.bfloat16)
+    p = fa._tma_ready(x, 40)
+    assert p.shape == (2, 10, 40) and torch.equal(p[..., :36], x) and not p[..., 36:].any()
+    assert fa._tma_ready(p, 40) is p
+    off = torch.zeros(1 + 2 * 10 * 40, dtype=torch.bfloat16)[1:].view(2, 10, 40)
+    assert off.data_ptr() % 16 != 0
+    fixed = fa._tma_ready(off, 40)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, off)
+    assert torch.equal(fa._unpad(p, 36), x) and fa._unpad(p, 36).is_contiguous()
+    before, shapes = dict(fa.LAUNCHES), dict(fa.SHAPES)
+    try:
+        fa._count("flash_fwd", 8, 1024, 4096, 40)
+        fa._count("flash_fwd", 8, 1024, 4096, 40)
+        assert fa.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 2
+        assert fa.SHAPES[("flash_fwd", 8, 1024, 4096, 40)] == \
+            shapes.get(("flash_fwd", 8, 1024, 4096, 40), 0) + 2
+    finally:
+        fa.LAUNCHES.update(before)
+        fa.SHAPES.clear()
+        fa.SHAPES.update(shapes)
 
 
 def _scene(rng, h, k_rows, l, lk, d):
