@@ -1,30 +1,33 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--steps N] [--seed S] [--profile]
-    python3 chip_smoke.py --flash-only [--package-root DIR]
+    python3 chip_smoke.py --only flash|corr|flash,corr [--package-root DIR]
 
 Phases, each of which fails the run on error:
-  1. builds the hand-written CUDA kernels from `geodiffuser_tpu_torch/csrc`;
+  1. builds the hand-written CUDA kernels from `geodiffuser_tpu_torch/csrc`
+     and prints ptxas's registers, spills and warnings for each;
   2. holds each kernel against its plain PyTorch version at the main paths'
      shapes (attention and removal correlation in float32 and bfloat16, the
      fused splat in float32), and times kernel, plain version and, for
      attention, `scaled_dot_product_attention` under each backend that runs
-     as a yardstick (bf16 flash at every shape the paths launch, by device
-     time);
+     as a yardstick (bf16 flash and correlation at every shape the paths
+     launch, by device time);
   3. runs one full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent)
      and the latent gradient of <eps, R>, through the flash kernels and
      with `flash_attention` replaced by its plain version, and compares them;
   4. runs three full-width edits (SD-1.4 geometry, bf16, 512^2, random
      weights from --seed): `geometry_editor` and `geometry_remover` through
      `EditSession.run`, and `geometry_stitch` through `perform_stitch`, each
-     with every kernel's launch count (and flash's count per shape) set to 0
-     just before and read just after;
+     with every kernel's launch count (and flash's and the correlation's
+     count per shape) set to 0 just before and read just after; a shape
+     launched there but not timed in phase 2 fails the run;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
-`--flash-only` runs phases 1 and 2 for flash attention alone; with
+`--only flash,corr` runs phases 1 and 2 for the named kernels alone; with
 `--package-root DIR` the port is imported from DIR (a checkout of another
 commit), so that two commits' kernels are timed at the same shapes in one
-call.  Prints the card, a {"kernels": [...]} line and, last, the result line.
+call.  Prints the card, a
+{"kernels": [...]} line and, last, the result line.
 float32 matmuls and convolutions run without TF32 (both switches are set
 off below) so that float32 comparisons hold float32 tolerances.
 """
@@ -292,28 +295,93 @@ def shape_counts(shapes: dict) -> str:
     return ", ".join(f"{k[0]} {'x'.join(map(str, k[1:]))}: {n}" for k, n in sorted(shapes.items()))
 
 
-def check_corr(rng_seed: int, editor_live: int, remover_live: int):
+# removal-correlation shapes the paths launch, (H, K budget, L, Lk, D): at
+# 64^2 the self (Lk 4096) and cross (Lk 77) layers, at 32^2 the same at
+# D 80; the editor's budget is seq // 4, the remover's seq // 2
+CORR_SHAPES = {"editor": [(8, 1024, 4096, 4096, 40), (8, 1024, 4096, 77, 40),
+                          (8, 256, 1024, 1024, 80), (8, 256, 1024, 77, 80)],
+               "remover": [(8, 2048, 4096, 4096, 40), (8, 2048, 4096, 77, 40),
+                           (8, 512, 1024, 1024, 80), (8, 512, 1024, 77, 80)]}
+
+
+def ptxas_lines(report: str) -> list:
+    """One line per kernel of ptxas's report (registers, spill bytes), and
+    its warnings (C7512/C7513: wgmma serialized), with demangled names."""
+    import re
+    import shutil
+
+    out, name, spills = [], "?", ""
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = f"spill stores/loads {m.group(1)}/{m.group(2)} B"
+        elif m := re.search(r"Used (\d+) registers", line):
+            out.append([name, f"{m.group(1)} registers, {spills}"])
+        elif "warning" in line or "Performance Loss" in line:
+            named = re.search(r"function '(\w+)'", line)
+            text = re.sub(r"^ptxas \w+\s*: ", "", line.strip())
+            out.append([named.group(1) if named else name,
+                        re.split(r" (?:in|for) the function", text)[0][:160]])
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt", "-p"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for row, short in zip(out, names):
+                row[0] = short.replace("(anonymous namespace)::", "")
+    return [f"{n}: {what}" for n, what in out]
+
+
+def kernel_breakdown(fn, iters: int = 5) -> str:
+    """Device time per call of each CUDA kernel `fn` launches (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    short = lambda name: name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+    return "; ".join(f"{ms:.4f} ms {short(name)[-60:]}" for name, ms in rows)
+
+
+def check_corr(rng_seed: int, live: dict):
+    """The correlation kernels against their plain versions at every path
+    shape (float32 and bf16), a planted-tie shape, and the dead rows; bf16
+    timed by device time at every path shape.  `live`: the scene's live
+    rows per (path, resolution)."""
     import torch
 
     from geodiffuser_tpu_torch.kernels import removal_corr as rc
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    # (H, K budget, L base rows, Lk keys, D, tied, live rows): the editor's
-    # 64^2 self, 64^2 cross (77 text keys), 32^2 self, 32^2 self with every
-    # inpaint base row equal and every background base row equal, so that
-    # each live row's two maxima are exact ties across lanes and spans and
-    # must take the lowest j; and the remover's 64^2 self, whose budget is
-    # seq // 2 = 2048 rows.  Live rows are the scene's (scene_live_rows).
-    shapes = [(8, 1024, 4096, 4096, 40, False, editor_live),
-              (8, 1024, 4096, 77, 40, False, editor_live),
-              (8, 256, 1024, 1024, 80, False, editor_live // 4),
-              (8, 256, 1024, 1024, 80, True, editor_live // 4),
-              (8, 2048, 4096, 4096, 40, False, remover_live)]
-    timed = {0: "", 4: "remover_"}   # shape index -> key prefix of its bf16 times
-    rec = {"corr_fwd": {}, "corr_bwd": {}}
+    editor_live, remover_live = live["editor", 64], live["remover", 64]
+    # (H, K budget, L base rows, Lk keys, D, tied, live rows, path): the
+    # editor's 64^2 self, 64^2 cross (77 text keys), 32^2 self, 32^2 self
+    # with every inpaint base row equal and every background base row equal,
+    # so that each live row's two maxima are exact ties across lanes and
+    # spans and must take the lowest j; the remover's 64^2 self, whose budget
+    # is seq // 2 = 2048 rows; then the remaining path shapes (32^2 cross,
+    # the remover's 64^2 cross and 32^2 maps).  Live rows are the scene's
+    # (scene_live_rows).
+    shapes = [(8, 1024, 4096, 4096, 40, False, editor_live, "editor"),
+              (8, 1024, 4096, 77, 40, False, editor_live, "editor"),
+              (8, 256, 1024, 1024, 80, False, editor_live // 4, "editor"),
+              (8, 256, 1024, 1024, 80, True, editor_live // 4, None),
+              (8, 2048, 4096, 4096, 40, False, remover_live, "remover"),
+              (8, 256, 1024, 77, 80, False, live["editor", 32], "editor"),
+              (8, 2048, 4096, 77, 40, False, remover_live, "remover"),
+              (8, 512, 1024, 1024, 80, False, live["remover", 32], "remover"),
+              (8, 512, 1024, 77, 80, False, live["remover", 32], "remover")]
+    rec = {"corr_fwd": {"shapes": []}, "corr_bwd": {"shapes": []}}
     for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for i, (h, kr, l, lk, d, tied, live) in enumerate(shapes):
-            live = min(live, kr)
+        for h, kr, l, lk, d, tied, live_rows, path in shapes:
+            live_rows = min(live_rows, kr)
             qe = torch.randn(h, kr, d, device="cuda", generator=g).to(dt)
             ke = torch.randn(h, lk, d, device="cuda", generator=g).to(dt)
             qb = torch.randn(h, l, d, device="cuda", generator=g).to(dt)
@@ -324,8 +392,9 @@ def check_corr(rng_seed: int, editor_live: int, remover_live: int):
             if tied:
                 qb[:, inp > 0.5] = qb[:, first_in:first_in + 1]
                 qb[:, bg > 0.5] = qb[:, first_bg:first_bg + 1]
-            rm = (torch.arange(kr, device="cuda") < live).float()
+            rm = (torch.arange(kr, device="cuda") < live_rows).float()
             scale = d ** -0.5
+            name = f"{(h, kr, l, lk, d)}{' tied' if tied else ''} live {live_rows}"
             got = rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale)
             ref = rc.corr_fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale)
             torch.cuda.synchronize()
@@ -333,8 +402,8 @@ def check_corr(rng_seed: int, editor_live: int, remover_live: int):
             # rounding may differ by one step where exp(s - lse) and softmax
             # straddle it; indices: equal except at near-ties, where the
             # kernel's index must attain the plain maximum of its masked columns
-            e_p = max(rel_err(got[0][:, :live], ref[0][:, :live]),
-                      rel_err(got[1][:, :live], ref[1][:, :live]))
+            e_p = max(rel_err(got[0][:, :live_rows], ref[0][:, :live_rows]),
+                      rel_err(got[1][:, :live_rows], ref[1][:, :live_rows]))
             pe = rc._probs(qe, ke, scale).float()
             pb = rc._probs(qb, kb, scale).float()
             corr = torch.matmul(pe, pb.transpose(-1, -2))
@@ -342,62 +411,92 @@ def check_corr(rng_seed: int, editor_live: int, remover_live: int):
             for col, (p_ref, j_got, j_ref) in ((inp, (ref[0], got[2], ref[2])),
                                                (bg, (ref[1], got[3], ref[3]))):
                 masked = torch.where(col[None, None] > 0.5, corr, rc.MASKED)
-                at_idx = torch.gather(masked, 2, j_got.long()[..., None])[..., 0][:, :live]
-                e_idx.append(rel_err(at_idx, p_ref[:, :live]))
-                same.append(float((j_got[:, :live] == j_ref[:, :live]).float().mean()))
-            del corr, masked
-            dead_ok = all(bool((got[n][:, live:] == v).all())
+                at_idx = torch.gather(masked, 2, j_got.long()[..., None])[..., 0][:, :live_rows]
+                e_idx.append(rel_err(at_idx, p_ref[:, :live_rows]))
+                same.append(float((j_got[:, :live_rows] == j_ref[:, :live_rows]).float().mean()))
+            del corr, masked, pe, pb
+            dead_ok = all(bool((got[n][:, live_rows:] == v).all())
                           for n, v in ((0, rc.NEG_INF), (1, rc.NEG_INF), (2, 0), (3, 0)))
-            tie_ok = not tied or bool((got[2][:, :live] == first_in).all()
-                                      and (got[3][:, :live] == first_bg).all())
-            log(f"corr_fwd {kind} {(h, kr, l, lk, d)}{' tied' if tied else ''} live {live}: "
+            tie_ok = not tied or bool((got[2][:, :live_rows] == first_in).all()
+                                      and (got[3][:, :live_rows] == first_bg).all())
+            log(f"corr_fwd {kind} {name}: "
                 f"rel err p {e_p:.2e}, corr at j_in/j_bg {e_idx[0]:.2e}/{e_idx[1]:.2e}, "
                 f"j_in/j_bg equal {same[0]:.4f}/{same[1]:.4f}, dead rows ok {dead_ok}"
                 + (f", lowest j on ties {tie_ok}" if tied else ""))
             # on planted ties the plain index rests on cuBLAS's rounding of
             # equal rows; the kernel's is held to the lowest j exactly instead
             expect(e_p <= 1e-2 and max(e_idx) <= 1e-2 and (tied or min(same) >= 0.98)
-                   and dead_ok and tie_ok, f"corr_fwd {kind} {(h, kr, l, lk, d)} tied={tied}")
-            # backward from the same residuals (the plain forward's indices)
+                   and dead_ok and tie_ok, f"corr_fwd {kind} {name}")
+            # the LSEs the backward reads: the edit rows' on the live 64-row
+            # chunks (bf16 writes 0 on dead chunks), the base rows' (written
+            # when any row is live)
+            live_ch = min(kr, -(-live_rows // 64) * 64)
+            e_lse = max(abs_err(got[4][:, :live_ch], ref[4][:, :live_ch]), abs_err(got[5], ref[5]))
+            zero_ok = kind != "bf16" or bool((got[4][:, live_ch:] == 0).all())
+            log(f"corr_fwd {kind} {name}: lse_e/lse_b abs err {e_lse:.2e} (tol 1e-3)"
+                + (f", lse_e 0 on dead chunks {zero_ok}" if kind == "bf16" else ""))
+            expect(e_lse <= 1e-3 and zero_ok, f"corr_fwd {kind} {name}: LSEs")
+            # backward from the same residuals (the plain forward's indices
+            # and LSEs)
             g_in = torch.where(rm[None] > 0.5, torch.randn(h, kr, device="cuda", generator=g), 0)
             g_bg = torch.where(rm[None] > 0.5, torch.randn(h, kr, device="cuda", generator=g), 0)
-            q_in = rc._gather_rows(qb, ref[2]).contiguous()
-            q_bg = rc._gather_rows(qb, ref[3]).contiguous()
-            bgot = rc.corr_bwd_cuda(qe, ke, kb, q_in, q_bg, g_in, g_bg, rm, scale)
-            bref = rc.corr_bwd_plain(qe, ke, kb, q_in, q_bg, g_in, g_bg, scale)
+            bwd = lambda fn, res, gi=g_in, gb=g_bg, **kw: fn(
+                qe, ke, qb, kb, res[2], res[3], gi, gb, rm, res[4], res[5], scale, **kw)
+            bgot = bwd(rc.corr_bwd_cuda, ref)
+            bref = bwd(rc.corr_bwd_plain, ref)
+            # and the chain the edits run, the kernel backward on the kernel
+            # forward's indices and LSEs, against the plain backward on the
+            # plain forward's; a row whose index differs (a near-tie) gets
+            # no cotangent on either side
+            gi, gb = (torch.where(got[n] == ref[n], gr, 0) for n, gr in ((2, g_in), (3, g_bg)))
+            chain = bwd(rc.corr_bwd_cuda, got, gi, gb)
+            chain_ref = bwd(rc.corr_bwd_plain, ref, gi, gb)
             torch.cuda.synchronize()
             errs = [rel_err(x, y) for x, y in zip(bgot, bref)]
-            log(f"corr_bwd {kind} {(h, kr, l, lk, d)}: rel err d_qe/d_ke "
-                f"{errs[0]:.2e} {errs[1]:.2e} (tol {TOL[kind]:.1e})")
-            expect(max(errs) <= TOL[kind], f"corr_bwd {kind} {(h, kr, l, lk, d)}")
-            if i in timed and kind == "bf16":
-                pre = timed[i]
-                ms = time_ms(lambda: rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale), 5)
-                plain = time_ms(lambda: rc.corr_fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale), 3)
-                nb = 2 * (live * d + 2 * lk * d + l * d) * h + 8 * l + 4 * kr + 16 * h * kr
-                ops = 2 * h * (live + l) * lk * d + 2 * h * live * l * lk
-                rec["corr_fwd"].update({
-                    pre + "ms": ms, pre + "plain_ms": plain, pre + "bound": bound_ms(nb, ops, kind),
-                    pre + "shape": [h, kr, l, lk, d], pre + "live_rows": live})
-                if not pre:
-                    rec["corr_fwd"].update(
-                        library_ms=None, dtype=kind,
-                        max_abs_err=max(abs_err(got[0][:, :live], ref[0][:, :live]),
-                                        abs_err(got[1][:, :live], ref[1][:, :live])))
-                ms = time_ms(lambda: rc.corr_bwd_cuda(qe, ke, kb, q_in, q_bg, g_in, g_bg, rm, scale))
-                plain = time_ms(lambda: rc.corr_bwd_plain(qe, ke, kb, q_in, q_bg, g_in, g_bg, scale))
-                nb = 2 * h * d * (3 * live + 2 * lk) + 8 * h * live + 4 * kr \
-                    + 4 * h * d * (live + lk)
-                ops = 10 * h * live * lk * d
-                rec["corr_bwd"].update({
-                    pre + "ms": ms, pre + "plain_ms": plain, pre + "bound": bound_ms(nb, ops, kind),
-                    pre + "shape": [h, kr, lk, d], pre + "live_rows": live})
-                if not pre:
-                    rec["corr_bwd"].update(
-                        library_ms=None, dtype=kind,
-                        max_abs_err=max(abs_err(x, y) for x, y in zip(bgot, bref)))
-                log(f"corr {kind} {(h, kr, l, lk, d)} live {live}: fwd {rec['corr_fwd'][pre + 'ms']:.3f} ms"
-                    f" (plain {rec['corr_fwd'][pre + 'plain_ms']:.3f}), bwd {ms:.3f} ms (plain {plain:.3f})")
+            e_chain = [rel_err(x, y) for x, y in zip(chain, chain_ref)]
+            log(f"corr_bwd {kind} {name}: rel err d_qe/d_ke "
+                f"{errs[0]:.2e} {errs[1]:.2e}, from each forward's own outputs "
+                f"{e_chain[0]:.2e} {e_chain[1]:.2e} (tol {TOL[kind]:.1e})")
+            expect(max(errs) <= TOL[kind], f"corr_bwd {kind} {name}")
+            expect(max(e_chain) <= TOL[kind], f"corr_bwd {kind} {name}: kernel forward's outputs")
+            del chain, chain_ref
+            if kind != "bf16" or path is None:
+                continue
+            ms = device_ms(lambda: rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale))
+            plain = device_ms(lambda: rc.corr_fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale), 3)
+            nb = 2 * (live_rows * d + 2 * lk * d + l * d) * h + 8 * l + 4 * kr + 16 * h * kr
+            ops = 2 * h * (live_rows + l) * lk * d + 2 * h * live_rows * l * lk
+            rec["corr_fwd"]["shapes"].append(dict(
+                shape=[h, kr, l, lk, d], path=path, live_rows=live_rows, ms=ms, plain_ms=plain,
+                library_ms=None, bound=bound_ms(nb, ops, kind),
+                max_abs_err=max(abs_err(got[0][:, :live_rows], ref[0][:, :live_rows]),
+                                abs_err(got[1][:, :live_rows], ref[1][:, :live_rows]))))
+            b_ms = device_ms(lambda: bwd(rc.corr_bwd_cuda, ref))
+            # the remover's keys are its detached base keys: no d_ke on its path
+            b_path = b_ms if path == "editor" else device_ms(
+                lambda: bwd(rc.corr_bwd_cuda, ref, need_dke=False))
+            b_plain = device_ms(lambda: bwd(rc.corr_bwd_plain, ref), 3)
+            nb = 2 * h * d * (3 * live_rows + 2 * lk) + 8 * h * live_rows + 4 * kr \
+                + 4 * h * d * (live_rows + lk)
+            rec["corr_bwd"]["shapes"].append(dict(
+                shape=[h, kr, l, lk, d], path=path, live_rows=live_rows, ms=b_ms,
+                path_ms=b_path, plain_ms=b_plain, library_ms=None,
+                bound=bound_ms(nb, 10 * h * live_rows * lk * d, kind),
+                max_abs_err=max(abs_err(x, y) for x, y in zip(bgot, bref))))
+            log(f"corr_fwd bf16 {name} kernels: " + kernel_breakdown(
+                lambda: rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale)))
+            log(f"corr_bwd bf16 {name} kernels: " + kernel_breakdown(
+                lambda: bwd(rc.corr_bwd_cuda, ref)))
+            log(f"corr bf16 {name} ({path}): fwd {ms:.4f} ms (plain {plain:.4f}, bound "
+                f"{rec['corr_fwd']['shapes'][-1]['bound'][0]:.4f}), bwd {b_ms:.4f} ms "
+                f"(path {b_path:.4f}, plain {b_plain:.4f}, bound "
+                f"{rec['corr_bwd']['shapes'][-1]['bound'][0]:.4f})")
+    timed = {tuple(sh["shape"]) for sh in rec["corr_fwd"]["shapes"]}
+    expect(timed == {sh for shapes in CORR_SHAPES.values() for sh in shapes},
+           f"corr: timed shapes {sorted(timed)} are not the paths' shapes")
+    for r in rec.values():   # the headline fields: the first (largest editor) shape
+        r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"},
+                 max_abs_err=max(sh["max_abs_err"] for sh in r["shapes"]), dtype="bf16")
     return rec
 
 
@@ -537,10 +636,12 @@ def run_path(args, pipe, path: str):
                                     camera.compose_transform(tx=0.1), cfg=cfg)
 
     from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
 
     for counts in launch_counts():
         counts.update(dict.fromkeys(counts, 0))
     fa.SHAPES.clear()
+    rc.SHAPES.clear()
     torch.cuda.reset_peak_memory_stats()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -553,12 +654,12 @@ def run_path(args, pipe, path: str):
         res = go()
     torch.cuda.synchronize()
     launches = {k: v for counts in launch_counts() for k, v in counts.items()}
-    shapes = dict(fa.SHAPES)
+    shapes = {**fa.SHAPES, **rc.SHAPES}
     log(f"{path} ({args.steps} DDIM steps): timings "
         f"{json.dumps({k: round(v, 3) for k, v in res.timings.items()})}")
     log(f"{path}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{path}: kernel launches {launches}")
-    log(f"{path}: flash launches by shape {shape_counts(shapes)}")
+    log(f"{path}: flash and corr launches by shape {shape_counts(shapes)}")
     for i, logs in sorted(res.loss_log.items()):
         log(f"{path}: step {i} loss total {logs['total']:.4f} self/removal "
             f"{logs['self/removal']:.4f} self/sim {logs['self/sim']:.4f}")
@@ -585,13 +686,17 @@ def report_profile(path: str, prof, wall_s: float) -> None:
     busy_ms = sum(r[1] for r in rows)
     log(f"profile {path}: device kernel time {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
         f"({100 * busy_ms / (wall_s * 1e3):.1f}%)")
-    for name, ms, n in rows[:20]:
-        log(f"profile {path}: {ms:10.1f} ms {100 * ms / busy_ms:5.1f}% {n:6d}x {name[:90]}")
+    # the 20 largest, then every other kernel of the port's own
+    own = ("flash_", "corr_", "sweep_kernel", "bwd_", "row_lse", "splat")
+    for rank, (name, ms, n) in enumerate(rows):
+        if rank < 20 or any(k in name for k in own):
+            log(f"profile {path}: {ms:10.1f} ms {100 * ms / busy_ms:5.1f}% {n:6d}x {name[:90]}")
 
 
-def scene_live_rows(size: int, mode: str) -> int:
-    """Live removal-loss rows at the largest latent resolution of the scene
-    in `mode` (what the corr kernels' work depends on)."""
+def scene_live_rows(size: int, mode: str) -> dict:
+    """Live removal-loss rows of the scene in `mode` at the two loss
+    resolutions, {64: n, 32: n} at 512^2 (what the corr kernels' work
+    depends on)."""
     import torch
 
     from geodiffuser_tpu_torch.config import EditConfig
@@ -612,7 +717,7 @@ def scene_live_rows(size: int, mode: str) -> int:
     ls = size // 8
     masks = edit_state.build_mask_sets(mask_t, tf.coords, amodal, resolutions=(ls, ls // 2),
                                        mode=mode, dilate_remover=cfg.mask_dilate_remover)
-    return int(masks[ls].inpaint_row_mask.sum().item())
+    return {r: int(masks[r].inpaint_row_mask.sum().item()) for r in (ls, ls // 2)}
 
 
 def small_reference(edit_type: str):
@@ -685,11 +790,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace each edit with torch.profiler and print device time by kernel")
-    ap.add_argument("--flash-only", action="store_true",
-                    help="check and time the flash kernels only")
+    ap.add_argument("--only", default=None,
+                    help="check and time only these kernels: flash, corr or flash,corr")
     ap.add_argument("--package-root", default=None,
                     help="import geodiffuser_tpu_torch from this directory")
     args = ap.parse_args(argv)
+    only = set((args.only or "").split(",")) - {""}
+    if not only <= {"flash", "corr"}:
+        ap.error(f"--only takes flash, corr or both, not {args.only}")
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
 
@@ -715,11 +823,22 @@ def main(argv=None) -> int:
     t0 = time.time()
     _build.lib()
     log(f"kernels built in {time.time() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
+    for line in ptxas_lines(_build.ptxas_report()):
+        log(f"ptxas {line}")
 
-    t0 = time.time()
-    rec = check_flash(args.seed)
-    log(f"flash checks and timings: {time.time() - t0:.1f} s")
-    if args.flash_only:
+    rec = {}
+    if not only or "flash" in only:
+        t0 = time.time()
+        rec.update(check_flash(args.seed))
+        log(f"flash checks and timings: {time.time() - t0:.1f} s")
+    if not only or "corr" in only:
+        t0 = time.time()
+        live = {(path, r): n for path in CORR_SHAPES
+                for r, n in scene_live_rows(SIZE, path).items()}
+        log(f"scene live rows (path, latent side): {live}")
+        rec.update(check_corr(args.seed, live))
+        log(f"corr checks and timings: {time.time() - t0:.1f} s")
+    if only:
         from geodiffuser_tpu_torch.kernels import flash_attention as fa
 
         log(f"package: {os.path.dirname(fa.__file__)}")
@@ -727,8 +846,6 @@ def main(argv=None) -> int:
                                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
                                     for n, r in rec.items()]}))
         return finish(card)
-    rec.update(check_corr(args.seed, scene_live_rows(SIZE, "editor"),
-                          scene_live_rows(SIZE, "remover")))
     rec.update(check_splat(args.seed))
 
     t0 = time.time()
@@ -742,9 +859,11 @@ def main(argv=None) -> int:
     runs = {path: run_path(args, pipe, path) for path in PATH_KERNELS}
     by_path = {path: launches for path, (launches, _) in runs.items()}
     timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
-             | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES})
+             | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES}
+             | {(name, *sh["shape"]) for name in ("corr_fwd", "corr_bwd")
+                for sh in rec[name]["shapes"]})
     untimed = {key for _, shapes in runs.values() for key in shapes} - timed
-    expect(not untimed, f"flash shapes launched on a path but not timed: {sorted(untimed)}")
+    expect(not untimed, f"flash or corr shapes launched on a path but not timed: {sorted(untimed)}")
     del pipe
     small_reference("geometry_editor")
     small_reference("geometry_remover")
@@ -760,21 +879,17 @@ def main(argv=None) -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": r["dtype"],
         }
-        if "shapes" in r:   # flash: every timed shape, with its launches on each path
+        if "shapes" in r:   # flash and corr: every timed shape, with its launches on each path
             entry["shapes"] = [dict(
-                shape=sh["shape"], ms=sh["ms"], plain_ms=sh["plain_ms"],
-                bound_ms=sh["bound"][0], bound_by=sh["bound"][1], library_ms=sh["library_ms"],
-                library_backend=sh["library_backend"], max_abs_err=sh["max_abs_err"],
+                {k: v for k, v in sh.items() if k != "bound"},
+                bound_ms=sh["bound"][0], bound_by=sh["bound"][1],
                 launches_by_path={path: shapes.get((name, *sh["shape"]), 0)
                                   for path, (_, shapes) in runs.items()})
                 for sh in r["shapes"]]
+        if "library_backend" in r:
             entry["library_backend"] = r["library_backend"]
-            if name == "flash_bwd":
-                entry["unet_check"] = unet
-        if "remover_ms" in r:   # the correlation at the remover's K = 2048 budget
-            entry.update(remover_shape=r["remover_shape"], remover_live_rows=r["remover_live_rows"],
-                         remover_ms=r["remover_ms"], remover_plain_ms=r["remover_plain_ms"],
-                         remover_bound_ms=r["remover_bound"][0])
+        if name == "flash_bwd":
+            entry["unet_check"] = unet
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     return finish(card)

@@ -4,7 +4,8 @@ At first use every `csrc/*.cu` is compiled for `sm_90a` by its own `nvcc`
 (all started together), linked into one shared library with a plain C
 interface, and loaded.  The library lands in `geodiffuser_tpu_torch/_build/`
 under a name that hashes the sources and flags, so a changed source is
-rebuilt and an unchanged one is reused.
+rebuilt and an unchanged one is reused; ptxas's report of every kernel
+(registers, spills, shared memory, warnings) is kept beside it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
@@ -37,6 +38,8 @@ SIGNATURES = {
     "gd_corr_spans": [_I],
     "gd_corr_fwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "gd_corr_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    "gd_corr_fwd_bf16": [_P] * 16 + [_I] * 8 + [_F, _P],
+    "gd_corr_bwd_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
     "gd_splat_fused": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P],
 }
 
@@ -84,13 +87,15 @@ def build() -> pathlib.Path:
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(cus, objs)
         ]
-        errors = []
+        errors, report = [], []
         for src, proc in zip(cus, procs):
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
+            report.append(f"== {src.name}\n{log}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        out.with_suffix(".ptxas.txt").write_text("\n".join(report))
         so = os.path.join(tmp, out.name)
         link = subprocess.run([nvcc, *FLAGS, "-shared", *objs, "-o", so],
                               capture_output=True, text=True)
@@ -99,6 +104,11 @@ def build() -> pathlib.Path:
         os.replace(so, out)
     build_seconds = time.time() - t0
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's report of the built library's kernels (written by `build`)."""
+    return build().with_suffix(".ptxas.txt").read_text()
 
 
 @functools.lru_cache(maxsize=1)

@@ -8,6 +8,7 @@ plain versions on the card by chip_smoke.py.
 """
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -59,6 +60,19 @@ def test_heap_trim_returns_freed_heap():
     finally:
         for p in kept:
             free(p)
+
+
+def test_heap_trim_runs_after_growth():
+    """The collection and trim after a test run first, then only once the
+    resident set has grown by GROWTH since the last one (or where it is
+    unknown); this process's resident set is read."""
+    import heap_trim
+
+    g = heap_trim.GROWTH
+    assert heap_trim.due(5 * g, None) and heap_trim.due(None, 5 * g)
+    assert not heap_trim.due(5 * g + g - 1, 5 * g) and not heap_trim.due(4 * g, 5 * g)
+    assert heap_trim.due(6 * g, 5 * g)
+    assert heap_trim.resident_bytes() == _rss() > 0
 
 
 def _t(x):
@@ -306,13 +320,17 @@ def test_corr_forward_matches_xla_exactly_on_dead_rows_and_ties():
         np.testing.assert_allclose(g[:, live], r[:, live], atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("lk", [128, 77])
-def test_corr_gradients_match_jax(lk):
-    """d/dqe and d/dke of a removal-style loss through the port's autograd
-    Function against removal_correlation(impl="pallas", interpret=True) with
-    the JAX package's own Pallas-vs-XLA tolerances (the Pallas kernel rounds
-    unnormalized exponentials to bf16, the XLA path and the port normalized
-    probabilities), and against impl="xla" at float32 tolerance."""
+def _removal_loss(p_in, p_bg, dist_w, row_mask, log, clamp, arr):
+    per = arr(dist_w) * (-log(clamp(p_bg) + 1e-4) + log(clamp(p_in) + 1e-4))
+    return (per * arr(row_mask)[None]).sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _corr_grad_case(lk):
+    """The removal-style loss of the gradient tests: its inputs, and per
+    impl ("pallas" in interpret mode, "xla") the JAX package's value, its
+    gradients in (qe, ke) and the forward's outputs (jitted once per Lk and
+    shared by the tests that read them)."""
     rng = np.random.RandomState(5)
     h, k_rows, l, d = 2, 32, 128, 24
     qe, ke, qb, kb, inp, bg = _scene(rng, h, k_rows, l, lk, d)
@@ -320,25 +338,116 @@ def test_corr_gradients_match_jax(lk):
     dist_w = rng.rand(h, k_rows).astype(np.float32)
     scale = d ** -0.5
 
-    def loss(p_in, p_bg, log, clamp, arr):
-        per = arr(dist_w) * (-log(clamp(p_bg) + 1e-4) + log(clamp(p_in) + 1e-4))
-        return (per * arr(row_mask)[None]).sum()
-
     def jloss(qe_, ke_, impl):
-        p_in, p_bg, _, _ = jrc.removal_correlation(
+        out = jrc.removal_correlation(
             qe_, ke_, jnp.asarray(qb), jnp.asarray(kb), jnp.asarray(inp), jnp.asarray(bg),
             jnp.asarray(row_mask), scale, impl, True)
-        return loss(p_in, p_bg, jnp.log, lambda x: jnp.maximum(x, 0.0), jnp.asarray)
+        return _removal_loss(out[0], out[1], dist_w, row_mask, jnp.log,
+                             lambda x: jnp.maximum(x, 0.0), jnp.asarray), out
 
+    ref = {impl: jax.jit(jax.value_and_grad(lambda a, b: jloss(a, b, impl), argnums=(0, 1),
+                                            has_aux=True))(jnp.asarray(qe), jnp.asarray(ke))
+           for impl in ("pallas", "xla")}
+    return (qe, ke, qb, kb, inp, bg, row_mask, dist_w, scale), ref
+
+
+@pytest.mark.parametrize("lk", [128, 77])
+def test_corr_gradients_match_jax(lk):
+    """d/dqe and d/dke of a removal-style loss through the port's autograd
+    Function against removal_correlation(impl="pallas", interpret=True) with
+    the JAX package's own Pallas-vs-XLA tolerances (the Pallas kernel rounds
+    unnormalized exponentials to bf16, the XLA path and the port normalized
+    probabilities), and against impl="xla" at float32 tolerance."""
+    (qe, ke, qb, kb, inp, bg, row_mask, dist_w, scale), ref = _corr_grad_case(lk)
     qt, kt = _t(qe).requires_grad_(True), _t(ke).requires_grad_(True)
     p_in, p_bg, _, _ = rc.removal_correlation(
         qt, kt, _t(qb), _t(kb), _t(inp), _t(bg), _t(row_mask), scale)
-    v = loss(p_in, p_bg, torch.log, lambda x: torch.clamp(x, min=0.0), _t)
+    v = _removal_loss(p_in, p_bg, dist_w, row_mask, torch.log,
+                      lambda x: torch.clamp(x, min=0.0), _t)
     v.backward()
     for impl, v_tol, g_tol in (("pallas", dict(rtol=2e-2), dict(atol=3e-3, rtol=3e-2)),
                                ("xla", dict(rtol=1e-5), dict(atol=1e-5, rtol=1e-4))):
-        v_ref, g_ref = jax.jit(jax.value_and_grad(lambda a, b: jloss(a, b, impl), argnums=(0, 1)))(
-            jnp.asarray(qe), jnp.asarray(ke))
+        (v_ref, _), g_ref = ref[impl]
         np.testing.assert_allclose(v.item(), float(v_ref), err_msg=impl, **v_tol)
         for g, r, name in zip((qt.grad, kt.grad), g_ref, ("dqe", "dke")):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=f"{impl} {name}", **g_tol)
+
+# removal-correlation shapes the paths launch (H, K budget, L, Lk, D): the
+# editor's budget seq // 4 and the remover's seq // 2, at 64^2 (D 40) and
+# 32^2 (D 80), self (Lk = L) and cross (77 text keys) layers
+MAIN_PATH_CORR = [(8, 1024, 4096, 4096, 40), (8, 1024, 4096, 77, 40), (8, 256, 1024, 1024, 80),
+                  (8, 256, 1024, 77, 80), (8, 2048, 4096, 4096, 40), (8, 2048, 4096, 77, 40),
+                  (8, 512, 1024, 1024, 80), (8, 512, 1024, 77, 80)]
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_CORR + [(2, 100, 200, 77, 36), (1, 1, 64, 1, 8),
+                                                    (3, 4096, 130, 4097, 72)])
+def test_corr_plan_covers_every_chunk_row_and_key(shape):
+    """What the wrapper hands the bf16 correlation kernels: the head dim and
+    the keys padded to what TMA and wgmma take, a P_e scratch that holds
+    every edit row at every padded key, and key splits that, at
+    ceil(tiles / splits) tiles each as csrc takes them, give every key tile
+    to exactly one non-empty split of at most KEY_SPLIT tiles."""
+    h, k_rows, l, lk, d = shape
+    plan = rc.corr_plan(h, k_rows, l, lk, d)
+    assert plan["d_pad"] % 8 == 0 and d <= plan["d_pad"] < d + 8
+    nt = plan["lk_pad"] // 64
+    assert plan["lk_pad"] % 64 == 0 and nt * 64 >= lk > (nt - 1) * 64
+    assert plan["pe_shape"] == (h, k_rows, plan["lk_pad"])
+    splits = plan["splits"]
+    per = -(-nt // splits)
+    tiles = [list(range(z * per, min(nt, (z + 1) * per))) for z in range(splits)]
+    assert sorted(t for ts in tiles for t in ts) == list(range(nt))
+    assert all(1 <= len(ts) <= rc.KEY_SPLIT for ts in tiles)
+    assert plan["warpgroups"] in (1, 2)
+
+
+def test_corr_plan_main_path_scratch_and_counts():
+    """The P_e scratch at the 64^2 self layers (64 MiB at the editor's
+    1024-row budget, 128 MiB at the remover's 2048), the 77 text keys padded
+    to two key tiles, the split and warpgroup choices of the 64^2 self
+    layer, and the launch count per shape."""
+    mib = 2 ** 20
+    pe_bytes = lambda *shape: 2 * int(np.prod(rc.corr_plan(*shape)["pe_shape"]))
+    assert pe_bytes(8, 1024, 4096, 4096, 40) == 64 * mib
+    assert pe_bytes(8, 2048, 4096, 4096, 40) == 128 * mib
+    assert rc.corr_plan(8, 256, 1024, 77, 80)["lk_pad"] == 128
+    assert rc.corr_plan(8, 2048, 4096, 4096, 40)["splits"] == 8
+    assert rc.corr_plan(8, 1024, 4096, 4096, 40)["warpgroups"] == 2
+    assert rc.corr_plan(8, 256, 1024, 1024, 80)["warpgroups"] == 1
+    before, shapes = dict(rc.LAUNCHES), dict(rc.SHAPES)
+    key = ("corr_bwd", 8, 512, 1024, 77, 80)
+    try:
+        rc._count(*key)
+        rc._count(*key)
+        assert rc.LAUNCHES["corr_bwd"] == before["corr_bwd"] + 2
+        assert rc.SHAPES[key] == shapes.get(key, 0) + 2
+    finally:
+        rc.LAUNCHES.update(before)
+        rc.SHAPES.clear()
+        rc.SHAPES.update(shapes)
+
+
+@pytest.mark.parametrize("lk", [128, 77])
+def test_corr_backward_from_saved_lse_matches_jax(lk):
+    """The plain backward fed the forward's saved LSEs, lse_b gathered at
+    the JAX kernel's argmax rows (as the wrapper gathers it on the card),
+    with the loss's cotangents, against the gradient of
+    removal_correlation(impl="pallas", interpret=True) at the tolerance of
+    test_corr_gradients_match_jax (whose JAX program it shares)."""
+    (qe, ke, qb, kb, inp, bg, row_mask, dist_w, scale), ref = _corr_grad_case(lk)
+    (_, (p_in, p_bg, j_in, j_bg)), g_ref = ref["pallas"]
+    p_in, p_bg = np.asarray(p_in), np.asarray(p_bg)
+    got = rc.corr_fwd_plain(*(_t(x) for x in (qe, ke, qb, kb, inp, bg, row_mask)), scale)
+    lse_e, lse_b = got[4], got[5]
+    s_b = np.einsum("hld,hkd->hlk", qb.astype(np.float64), kb.astype(np.float64)) * scale
+    np.testing.assert_allclose(lse_b.numpy(), np.log(np.exp(s_b).sum(-1)), rtol=1e-5, atol=1e-5)
+    # d loss / d p of _removal_loss; mask-excluded maxima and dead rows carry none
+    live = row_mask[None] * (p_in > rc.MASKED * 0.5) * (p_bg > rc.MASKED * 0.5)
+    g_in = np.where(p_in > 0, dist_w / (np.maximum(p_in, 0) + 1e-4), 0) * live
+    g_bg = np.where(p_bg > 0, -dist_w / (np.maximum(p_bg, 0) + 1e-4), 0) * live
+    d_qe, d_ke = rc.corr_bwd_plain(
+        *(_t(x) for x in (qe, ke, qb, kb)), torch.from_numpy(np.array(j_in)),
+        torch.from_numpy(np.array(j_bg)), _t(g_in), _t(g_bg), _t(row_mask), lse_e, lse_b, scale)
+    for g, r, name in zip((d_qe, d_ke), g_ref, ("dqe", "dke")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name, atol=3e-3, rtol=3e-2)
