@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--steps N] [--seed S] [--profile]
-    python3 chip_smoke.py --only flash|corr|flash,corr [--package-root DIR]
+    python3 chip_smoke.py --only flash,corr,splat [--package-root DIR]
 
 Phases, each of which fails the run on error:
   1. builds the hand-written CUDA kernels from `geodiffuser_tpu_torch/csrc`
@@ -11,7 +11,10 @@ Phases, each of which fails the run on error:
      fused splat in float32), and times kernel, plain version and, for
      attention, `scaled_dot_product_attention` under each backend that runs
      as a yardstick (bf16 flash and correlation at every shape the paths
-     launch, by device time);
+     launch, the splat at the stitch's 512^2 C=4, at C=3 and C=1 and on
+     the stitch zoomed far out, by device time); the splat's every case
+     must give equal bits in two launches, and the stitch composite in two
+     runs;
   3. runs one full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent)
      and the latent gradient of <eps, R>, through the flash kernels and
      with `flash_attention` replaced by its plain version, and compares them;
@@ -23,7 +26,8 @@ Phases, each of which fails the run on error:
      launched there but not timed in phase 2 fails the run;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
-`--only flash,corr` runs phases 1 and 2 for the named kernels alone; with
+`--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
+kernels alone; with
 `--package-root DIR` the port is imported from DIR (a checkout of another
 commit), so that two commits' kernels are timed at the same shapes in one
 call.  Prints the card, a
@@ -100,9 +104,11 @@ def expect(ok: bool, what: str) -> None:
 # summation order; bf16 outputs may differ by a rounding step of the output
 # type (2^-8 relative) where the float32 sums straddle it
 TOL = {"f32": 1e-4, "bf16": 1.6e-2}
-# absolute tolerance of the fused splat (outputs in [0, 1]): float32 sums of
-# a few corners added by atomics in a run-dependent order, and expf / logf /
-# powf of the CUDA math library against PyTorch's, a few ulp apart
+# absolute tolerance of the fused splat (outputs in [0, 1]): the kernel sums
+# each cell's corners in ascending point index and the plain version by
+# index_add_ (atomics on the card), so float32 sums differ in order; and
+# expf / logf / powf of the CUDA math library differ from PyTorch's by a few
+# ulp
 SPLAT_TOL = 1e-5
 
 
@@ -513,8 +519,119 @@ def splat_field(rng, h: int, w: int, shift: float):
     return torch.as_tensor(tc, dtype=torch.float32, device="cuda")
 
 
-def check_splat(rng_seed: int):
-    """The fused splat kernel against its plain version, float32."""
+def splat_bound(coords, c: int):
+    """Bound of one splat: each point's 12 + 4C input bytes read and each
+    cell's 4C output bytes written once; 2C + 4 operations on every corner on
+    the grid that this field's points reach."""
+    import torch
+
+    h, w, _ = coords.shape
+    n = h * w
+    x = (coords[..., 0] + 1.0) * 0.5 * (w - 1)
+    y = (coords[..., 1] + 1.0) * 0.5 * (h - 1)
+    fx, fy = torch.floor(x), torch.floor(y)
+    corners = sum(int((((fx + ox) >= 0) & ((fx + ox) < w) & ((fy + oy) >= 0)
+                       & ((fy + oy) < h)).sum()) for ox in (0, 1) for oy in (0, 1))
+    return bound_ms(n * (12 + 4 * c) + n * 4 * c, corners * (2 * c + 4), "f32")
+
+
+def splat_bins(coords) -> str:
+    """The points of a field by base cell (floor x, floor y), on the grid
+    padded by one row and column at the low edge: bins used, mean, most."""
+    import torch
+
+    h, w, _ = coords.shape
+    x = torch.floor((coords[..., 0] + 1.0) * 0.5 * (w - 1))
+    y = torch.floor((coords[..., 1] + 1.0) * 0.5 * (h - 1))
+    on = (x >= -1) & (x < w) & (y >= -1) & (y < h)
+    counts = torch.bincount(((y + 1) * (w + 1) + x + 1)[on].long())
+    counts = counts[counts > 0]
+    return (f"{counts.numel()} bins, mean {float(counts.float().mean()):.1f}, "
+            f"most {int(counts.max())} points")
+
+
+def time_splat(ks, name: str, field: str, src, coords, radius, tau, z_beta) -> dict:
+    """Device time (queued launches) and host-inclusive time of the splat
+    kernel as the path calls it, of the plain version, and the bound."""
+    run = lambda: ks.splat_fused_cuda(src, coords, radius, tau, z_beta)
+    row = dict(field=field, channels=src.shape[-1], ms=device_ms(run, 50),
+               host_ms=time_ms(run, 50),
+               plain_ms=time_ms(lambda: ks.splat_fused_plain(src, coords, radius, tau, z_beta),
+                                3))
+    row["bound_ms"], row["bound_by"] = splat_bound(coords, src.shape[-1])
+    log(f"splat_fused {name}: {row['ms']:.4f} ms device ({row['host_ms']:.4f} ms with the host's "
+        f"calls), plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
+
+
+def check_splat_case(ks, name: str, src, coords, radius, tau, z_beta, out_hw, least: float,
+                     own: bool):
+    """One splat case: the kernel within SPLAT_TOL of the plain version,
+    reaching more than `least` of the cells, and equal bits in two launches
+    (reported, not required, for another checkout's kernels).  Returns the
+    kernel's output and its error."""
+    import torch
+
+    got = ks.splat_fused_cuda(src, coords, radius, tau, z_beta, out_hw)
+    again = ks.splat_fused_cuda(src, coords, radius, tau, z_beta, out_hw)
+    ref = ks.splat_fused_plain(src, coords, radius, tau, z_beta, out_hw)
+    # the plain version sums by index_add_, atomics on the card: its own
+    # spread between two runs, beside the kernel's error
+    spread = abs_err(ref, ks.splat_fused_plain(src, coords, radius, tau, z_beta, out_hw))
+    torch.cuda.synchronize()
+    err = abs_err(got, ref)
+    same = torch.equal(got, again)
+    covered = float((ref.abs().sum(-1) > 0).float().mean())
+    log(f"splat_fused {name} r={radius} tau={tau}: max abs err {err:.2e} "
+        f"(tol {SPLAT_TOL:.0e}; the plain version's spread in two runs {spread:.2e}), "
+        f"cells reached {covered:.4f}, two launches equal: {same}")
+    expect(got.shape == ref.shape and err <= SPLAT_TOL and covered > least, f"splat_fused {name}")
+    expect(same or not own, f"splat_fused {name}: two launches differ")
+    return got, err
+
+
+def check_splat_channels(ks, name: str, src, coords, radius, tau, z_beta, got, own: bool):
+    """The C=4 call's image and mask channels against C=3 and C=1 calls of
+    the kernel: equal bits (reported, not required, for another checkout)."""
+    import torch
+
+    img = ks.splat_fused_cuda(src[..., :3].contiguous(), coords, radius, tau, z_beta)
+    msk = ks.splat_fused_cuda(src[..., 3:].contiguous(), coords, radius, tau, z_beta)
+    same = torch.equal(got[..., :3], img) and torch.equal(got[..., 3:], msk)
+    log(f"splat_fused {name}: C=4 equals C=3 and C=1 calls bit for bit: {same}")
+    expect(same or not own, f"splat_fused {name}: C=4 differs from C=3 and C=1 calls")
+
+
+def stitch_splat_input(ks, seed: int, transform: dict):
+    """stitch_composite on the scene with `transform`: its composite and
+    mask, and the splat calls it made, as (src, coords, (radius, tau,
+    z_beta))."""
+    from geodiffuser_tpu_torch.config import EditConfig
+    from geodiffuser_tpu_torch.core.editor import stitch_composite
+    from geodiffuser_tpu_torch.ops import camera
+
+    calls, splat = [], ks.splat_fused
+    ks.splat_fused = lambda src, coords, *a: (calls.append((src, coords, a)),
+                                              splat(src, coords, *a))[1]
+    try:
+        image, depth, mask = build_scene(SIZE)
+        comp, warped = stitch_composite(EditConfig(edit_type="geometry_stitch"),
+                                        stitch_background(seed), image, mask, depth,
+                                        camera.compose_transform(**transform))
+    finally:
+        ks.splat_fused = splat
+    return comp, warped, calls
+
+
+def check_splat(rng_seed: int, own: bool):
+    """The fused splat kernel against its plain version, float32, every case
+    launched twice and required to give equal bits; the stitch composite run
+    twice on the scene, likewise.  Times the kernel at the path's shape (512^2
+    C=4, the stitch's one call), at C=3 and C=1 (the image and mask as
+    separate calls), on the stitch's own input and on stitches zoomed far
+    out (thousands of points a cell), and on the many-points-a-cell cases.
+    `own` is False when the kernels are another checkout's (--package-root):
+    its determinism is then reported, not required."""
     import torch
 
     from geodiffuser_tpu_torch.kernels import splat as ks
@@ -522,57 +639,88 @@ def check_splat(rng_seed: int):
 
     rng = np.random.RandomState(rng_seed)
     s = SIZE
-    cases = []   # (name, src, coords, radius, tau, out_hw)
-    for c in (3, 1):   # the stitch composite's image and mask splats
-        cases.append((f"{s}^2 C{c}", rng.rand(s, s, c), splat_field(rng, s, s, 0.05), 1.3, 1.0, None))
+    cases = []   # (name, src, coords, radius, tau, out_hw, least share of cells reached)
+    for c in (4, 3, 1):   # the stitch's call (image and mask), and each as a call of its own
+        cases.append((f"{s}^2 C{c}", rng.rand(s, s, c), splat_field(rng, s, s, 0.05), 1.3, 1.0,
+                      None, 0.5))
     cases.append(("ragged 333x517 -> 170x259 C3", rng.rand(333, 517, 3),
-                  splat_field(rng, 333, 517, 0.05), 1.3, 1.0, (170, 259)))
+                  splat_field(rng, 333, 517, 0.05), 1.3, 1.0, (170, 259), 0.5))
     # identity: every point lands on an exact or near-integer pixel (the
     # NDC -> pixel roundtrip), where the corners hinge on the float32 floor
     ident = camera.identity_field(s, s, device="cuda")
-    cases.append((f"{s}^2 identity C3", rng.rand(s, s, 3), ident, 1.3, 1.0, None))
+    cases.append((f"{s}^2 identity C3", rng.rand(s, s, 3), ident, 1.3, 1.0, None, 0.5))
     jitter = torch.as_tensor(rng.choice([-1e-7, 0.0, 1e-7], size=(s, s, 1)), dtype=torch.float32,
                              device="cuda")
     near = ident + torch.cat([jitter, jitter, torch.zeros_like(jitter)], dim=-1)
-    cases.append((f"{s}^2 near-integer C1", rng.rand(s, s, 1), near, 1.0, 0.5, None))
+    cases.append((f"{s}^2 near-integer C1", rng.rand(s, s, 1), near, 1.0, 0.5, None, 0.5))
     # two sources collapse onto one cell: the nearer (smaller z) must win
     collapse = camera.identity_field(64, 64, device="cuda")
     collapse[10, 21, :2] = collapse[10, 20, :2]
     collapse[..., 2] = 1.0
     collapse[10, 21, 2] = 0.1
-    cases.append(("collapse 64^2 C3", rng.rand(64, 64, 3), collapse, 1.0, 1.0, None))
-    rec = {}
-    for name, src, coords, radius, tau, out_hw in cases:
+    cases.append(("collapse 64^2 C3", rng.rand(64, 64, 3), collapse, 1.0, 1.0, None, 0.5))
+    # a shrink about the centre: about 16 points a cell on a sixteenth of the grid
+    shrink = splat_field(rng, s, s, 0.002)
+    shrink[..., :2] *= 0.25
+    shrink_name = f"{s}^2 shrink x0.25 C4"
+    cases.append((shrink_name, rng.rand(s, s, 4), shrink, 1.3, 1.0, None, 0.05))
+    # 64 x 64 = 4096 points collapsed onto one cell, the rest jittered identity
+    pile = splat_field(rng, s, s, 0.002)
+    pile[100:164, 200:264, :2] = pile[300, 300, :2]
+    pile_name = "collapse of 4096 points onto one cell C4"
+    cases.append((pile_name, rng.rand(s, s, 4), pile, 1.3, 1.0, None, 0.5))
+    rec, errs, timed, case_ms = {}, [], [], {}
+    for name, src, coords, radius, tau, out_hw, least in cases:
         src = torch.as_tensor(src, dtype=torch.float32, device="cuda")
-        got = ks.splat_fused_cuda(src, coords, radius, tau, 20.0, out_hw)
-        ref = ks.splat_fused_plain(src, coords, radius, tau, 20.0, out_hw)
-        torch.cuda.synchronize()
-        err = abs_err(got, ref)
-        covered = float((ref.abs().sum(-1) > 0).float().mean())
-        log(f"splat_fused {name} r={radius} tau={tau}: max abs err {err:.2e} "
-            f"(tol {SPLAT_TOL:.0e}), cells reached {covered:.4f}")
-        expect(got.shape == ref.shape and err <= SPLAT_TOL and covered > 0.5, f"splat_fused {name}")
-        if name.startswith("collapse"):
+        got, err = check_splat_case(ks, name, src, coords, radius, tau, 20.0, out_hw, least, own)
+        errs.append(err)
+        if name.startswith("collapse 64"):
             e_near = abs_err(got[10, 20], src[10, 21])
             log(f"splat_fused {name}: nearer source at the shared cell, abs err {e_near:.2e}")
             expect(e_near <= 2e-4, "splat_fused: the nearer source must win")
-        if name == f"{s}^2 C3":
-            ms = time_ms(lambda: ks.splat_fused_cuda(src, coords, radius, tau, 20.0))
-            plain = time_ms(lambda: ks.splat_fused_plain(src, coords, radius, tau, 20.0), 3)
-            n, c = s * s, src.shape[-1]
-            # the corners this field's points reach (what the sums do)
-            x = (coords[..., 0] + 1.0) * 0.5 * (s - 1)
-            y = (coords[..., 1] + 1.0) * 0.5 * (s - 1)
-            fx, fy = torch.floor(x), torch.floor(y)
-            corners = sum(int((((fx + ox) >= 0) & ((fx + ox) < s) & ((fy + oy) >= 0)
-                               & ((fy + oy) < s)).sum()) for ox in (0, 1) for oy in (0, 1))
-            nb = n * (12 + 4 * c) + n * 4 * c
-            ops = corners * (2 * c + 4)
-            rec["splat_fused"] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                      bound=bound_ms(nb, ops, "f32"), max_abs_err=err,
-                                      shape=[s, s, c], dtype="f32")
-            log(f"splat_fused {name}: {ms:.4f} ms (plain {plain:.4f}), bound "
-                f"{rec['splat_fused']['bound'][0]:.4f} ms ({rec['splat_fused']['bound'][1]})")
+        if name == f"{s}^2 C4":
+            check_splat_channels(ks, name, src, coords, radius, tau, 20.0, got, own)
+            log(f"splat_fused {name}: profiler: " + kernel_breakdown(
+                lambda: ks.splat_fused_cuda(src, coords, radius, tau, 20.0)))
+        if name in (f"{s}^2 C{c}" for c in (4, 3, 1)):
+            timed.append(time_splat(ks, name, "jittered identity", src, coords, radius, tau, 20.0))
+        if name in (shrink_name, pile_name):
+            case_ms[name] = device_ms(lambda: ks.splat_fused_cuda(src, coords, radius, tau, 20.0),
+                                      20)
+            log(f"splat_fused {name}: {case_ms[name]:.4f} ms device")
+    # the stitch composite twice on the scene: equal composites and masks,
+    # and one splat call each
+    (comp, warped, calls), (comp2, warped2, calls2) = (
+        stitch_splat_input(ks, rng_seed, STITCH_TRANSFORM) for _ in range(2))
+    same = np.array_equal(comp, comp2) and np.array_equal(warped, warped2)
+    log(f"stitch_composite on the {s}^2 scene twice: composites and masks equal: {same}; "
+        f"splat calls {[tuple(c[0].shape) for c in calls + calls2]}")
+    expect(same or not own, "stitch_composite: two runs differ")
+    expect(len(calls) == 1 or not own, "stitch_composite: one splat call a composite")
+    # the stitch's own splat input (the image and mask, C=4, on the scene's
+    # transform field, whichever calls the package makes of it), and the
+    # same stitch zoomed far out: the scene's points on a few hundred cells
+    # (x0.05) or a few dozen (x0.01)
+    inputs = [("stitch scene", calls)]
+    for zoom in STITCH_ZOOMS:
+        inputs.append((f"stitch zoom x{zoom}", stitch_splat_input(
+            ks, rng_seed, dict(STITCH_TRANSFORM, sx=zoom, sy=zoom, sz=zoom))[2]))
+    for field, made in inputs:
+        src = torch.cat([c[0] for c in made], dim=-1).float().contiguous()
+        coords = made[0][1].contiguous()
+        radius, tau, z_beta = made[0][2]
+        name = f"{field} {s}^2 C{src.shape[-1]}"
+        log(f"splat_fused {name}: points by base cell: {splat_bins(coords)}")
+        got, err = check_splat_case(ks, name, src, coords, radius, tau, z_beta, None, 0.0, own)
+        errs.append(err)
+        if field == "stitch scene":
+            check_splat_channels(ks, name, src, coords, radius, tau, z_beta, got, own)
+        timed.append(time_splat(ks, name, field, src, coords, radius, tau, z_beta))
+    path = timed[0]
+    rec["splat_fused"] = dict(ms=path["ms"], plain_ms=path["plain_ms"], library_ms=None,
+                              bound=(path["bound_ms"], path["bound_by"]), max_abs_err=max(errs),
+                              shape=[s, s, path["channels"]], dtype="f32", timed_inputs=timed,
+                              case_ms=case_ms)
     return rec
 
 
@@ -591,13 +739,20 @@ def build_scene(size: int):
     return image, depth, mask
 
 
+def stitch_background(seed: int) -> np.ndarray:
+    return (np.random.RandomState(seed + 1).rand(SIZE, SIZE, 3) * 255).astype(np.uint8)
+
+
 EDITOR_TRANSFORM = dict(tx=0.08, ry=15.0)
-# kernels each path must launch; the stitch composite's two splats exactly
+STITCH_TRANSFORM = dict(tx=0.1)
+# scales of the stitch zoomed far out (splat cases)
+STITCH_ZOOMS = (0.05, 0.01)
+# kernels each path must launch; the stitch composite's one splat exactly
 PATH_KERNELS = {
     "editor": {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None},
     "remover": {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None},
     "stitch": {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None,
-               "splat_fused": 2},
+               "splat_fused": 1},
 }
 
 
@@ -630,10 +785,8 @@ def run_path(args, pipe, path: str):
     else:
         cfg = EditConfig(edit_type="geometry_stitch", num_ddim_steps=args.steps,
                          cache_inversion=False)
-        background = (np.random.RandomState(args.seed + 1).rand(SIZE, SIZE, 3) * 255
-                      ).astype(np.uint8)
-        go = lambda: perform_stitch(pipe, background, image, mask, depth,
-                                    camera.compose_transform(tx=0.1), cfg=cfg)
+        go = lambda: perform_stitch(pipe, stitch_background(args.seed), image, mask, depth,
+                                    camera.compose_transform(**STITCH_TRANSFORM), cfg=cfg)
 
     from geodiffuser_tpu_torch.kernels import flash_attention as fa
     from geodiffuser_tpu_torch.kernels import removal_corr as rc
@@ -791,13 +944,14 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace each edit with torch.profiler and print device time by kernel")
     ap.add_argument("--only", default=None,
-                    help="check and time only these kernels: flash, corr or flash,corr")
+                    help="check and time only these kernels: any of flash, corr, splat, "
+                         "comma-separated")
     ap.add_argument("--package-root", default=None,
                     help="import geodiffuser_tpu_torch from this directory")
     args = ap.parse_args(argv)
     only = set((args.only or "").split(",")) - {""}
-    if not only <= {"flash", "corr"}:
-        ap.error(f"--only takes flash, corr or both, not {args.only}")
+    if not only <= {"flash", "corr", "splat"}:
+        ap.error(f"--only takes flash, corr and splat, not {args.only}")
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
 
@@ -838,6 +992,10 @@ def main(argv=None) -> int:
         log(f"scene live rows (path, latent side): {live}")
         rec.update(check_corr(args.seed, live))
         log(f"corr checks and timings: {time.time() - t0:.1f} s")
+    if not only or "splat" in only:
+        t0 = time.time()
+        rec.update(check_splat(args.seed, own=args.package_root is None))
+        log(f"splat checks and timings: {time.time() - t0:.1f} s")
     if only:
         from geodiffuser_tpu_torch.kernels import flash_attention as fa
 
@@ -846,7 +1004,6 @@ def main(argv=None) -> int:
                                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
                                     for n, r in rec.items()]}))
         return finish(card)
-    rec.update(check_splat(args.seed))
 
     t0 = time.time()
     pipe = Pipeline.create(ModelConfig(), image_size=SIZE, seed=args.seed, device="cuda")
@@ -886,6 +1043,8 @@ def main(argv=None) -> int:
                 launches_by_path={path: shapes.get((name, *sh["shape"]), 0)
                                   for path, (_, shapes) in runs.items()})
                 for sh in r["shapes"]]
+        if "timed_inputs" in r:   # splat: C=4, C=3, C=1 jittered; the stitch scene and zooms
+            entry["timed_inputs"], entry["case_ms"] = r["timed_inputs"], r["case_ms"]
         if "library_backend" in r:
             entry["library_backend"] = r["library_backend"]
         if name == "flash_bwd":

@@ -40,7 +40,8 @@ SIGNATURES = {
     "gd_corr_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     "gd_corr_fwd_bf16": [_P] * 16 + [_I] * 8 + [_F, _P],
     "gd_corr_bwd_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
-    "gd_splat_fused": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P],
+    "gd_splat_workspace": [_I] * 4,
+    "gd_splat_fused": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
 }
 
 

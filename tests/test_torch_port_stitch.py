@@ -1,7 +1,9 @@
 """The port's fused splat and stitch against the JAX package, on the CPU.
 
 The fused splat's plain version is held against the JAX Pallas kernel in
-interpret mode on the cases of tests/test_splat_kernel.py; the stitch's
+interpret mode on the cases of tests/test_splat_kernel.py and on fields with
+many points a cell; the stitch composite's one 4-channel splat against
+separate image and mask splats, bit for bit; the stitch's
 adaptive weights, its pre-composite and one whole tiny stitch against the
 JAX package's (ModelConfig.tiny(), float32, weights carried over as in
 tests/test_torch_port_edit.py).  The CUDA kernel is held against the plain
@@ -97,6 +99,22 @@ def test_splat_plain_rect_and_out_hw():
     np.testing.assert_allclose(got, _pallas(src, tc, 1.3, 1.0, 16, out_hw=(6, 10)), **SPLAT_TOL)
 
 
+@pytest.mark.parametrize("field", ["shrink", "collapse"])
+def test_splat_plain_matches_pallas_many_points_per_cell(field):
+    """Many points a cell: a 32^2 field scaled by 0.25 about the centre
+    (16 points a cell), and 256 points collapsed onto one cell beside the
+    rest of the identity."""
+    rng = np.random.RandomState(3)
+    src = rng.rand(32, 32, 4).astype(np.float32)
+    tc = _field(rng, 32, 32, shift=0.01)
+    if field == "shrink":
+        tc[..., :2] *= 0.25
+    else:
+        tc[8:24, 8:24, :2] = tc[16, 16, :2]
+    got = ks.splat_fused(_t(src), _t(tc), 1.3, 1.0).numpy()
+    np.testing.assert_allclose(got, _pallas(src, tc, 1.3, 1.0, 1024), **SPLAT_TOL)
+
+
 def test_adaptive_step_stitching_matches_jax():
     """The sim-weight schedule over all three phases, with logged sim values
     behind, far ahead of and near the expected loss."""
@@ -156,6 +174,33 @@ def test_stitch_composite_uses_the_fused_splat(stitch_scene):
     assert ks.LAUNCHES == counts
     ref = np.asarray(jax.jit(jsplat.splat_image)(jnp.asarray(fg), jnp.asarray(tf.coords.numpy())))
     np.testing.assert_allclose(fused, ref, atol=2e-6, rtol=0)
+
+
+def test_stitch_composite_splats_once(stitch_scene, monkeypatch):
+    """The composite splats image and mask in one 4-channel call, which
+    equals separate image (C=3) and mask (C=1) splats bit for bit."""
+    bg, fg, mask, depth, transform = stitch_scene
+    calls = []
+    splat = ks.splat_fused
+
+    def record(src, coords, *args):
+        calls.append((src, coords, args))
+        return splat(src, coords, *args)
+
+    monkeypatch.setattr(editor.splat_kernel, "splat_fused", record)
+    comp, warped_mask = editor.stitch_composite(EditConfig(**STITCH), bg, fg, mask, depth,
+                                                transform, device="cpu")
+    assert len(calls) == 1
+    src, coords, args = calls[0]
+    assert src.shape == (SIZE, SIZE, 4)
+    both = splat(src, coords, *args)
+    img = splat(src[..., :3].contiguous(), coords, *args)
+    msk = splat(src[..., 3:].contiguous(), coords, *args)
+    assert torch.equal(both[..., :3], img) and torch.equal(both[..., 3:], msk)
+    assert np.array_equal(warped_mask, (msk[..., 0] > 0.5).float().numpy())
+    m3 = (msk > 0.5).float()
+    want = torch.clamp(img * m3 + _t(bg) * (1.0 - m3), 0, 1).numpy()
+    assert np.array_equal(comp, want)
 
 
 def test_stitch_matches_jax(stitch_scene):
