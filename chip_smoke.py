@@ -1,29 +1,35 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--steps N] [--seed S] [--profile]
+    python3 chip_smoke.py [--steps N] [--large-steps N] [--seed S] [--profile]
     python3 chip_smoke.py --only flash,corr,splat [--package-root DIR]
 
 Phases, each of which fails the run on error:
   1. builds the hand-written CUDA kernels from `geodiffuser_tpu_torch/csrc`
      and prints ptxas's registers, spills and warnings for each;
   2. holds each kernel against its plain PyTorch version at the main paths'
-     shapes (attention and removal correlation in float32 and bfloat16, the
-     fused splat in float32), and times kernel, plain version and, for
-     attention, `scaled_dot_product_attention` under each backend that runs
-     as a yardstick (bf16 flash and correlation at every shape the paths
-     launch, the splat at the stitch's 512^2 C=4, at C=3 and C=1 and on
-     the stitch zoomed far out, by device time); the splat's every case
-     must give equal bits in two launches, and the stitch composite in two
-     runs;
+     shapes, at 512^2 and 1024^2 images (attention and removal correlation
+     in float32 and bfloat16, the fused splat in float32), and times kernel,
+     plain version and, for attention, `scaled_dot_product_attention` under
+     each backend that runs as a yardstick (bf16 flash and correlation at
+     every shape the paths launch, the correlation also at the 768^2
+     remover's K = 4608 rows, the splat at the stitch's 512^2 C=4, at C=3
+     and C=1 and on the stitch zoomed far out, by device time); the splat's
+     every case must give equal bits in two launches and in two runs of its
+     plain version, and the stitch composite in two runs;
   3. runs one full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent)
      and the latent gradient of <eps, R>, through the flash kernels and
      with `flash_attention` replaced by its plain version, and compares them;
-  4. runs three full-width edits (SD-1.4 geometry, bf16, 512^2, random
-     weights from --seed): `geometry_editor` and `geometry_remover` through
-     `EditSession.run`, and `geometry_stitch` through `perform_stitch`, each
-     with every kernel's launch count (and flash's and the correlation's
-     count per shape) set to 0 just before and read just after; a shape
-     launched there but not timed in phase 2 fails the run;
+  4. runs full-width edits (SD-1.4 geometry, bf16, random weights from
+     --seed): at 512^2 `geometry_editor` and `geometry_remover` through
+     `EditSession.run` and `geometry_stitch` through `perform_stitch`; the
+     512^2 editor with every run option on (4 steps; null-text, the
+     fast-start inner loop, the attention constraints, the inversion cached
+     in an experiment folder), twice, the second reading it from the disk; an
+     invert -> `reconstruct` round trip; the editor and remover at 1024^2
+     (--large-steps); each edit with every kernel's launch count (and
+     flash's and the correlation's count per shape) set to 0 just before
+     and read just after; a shape launched there but not timed in phase 2
+     fails the run;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
 `--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
@@ -39,6 +45,7 @@ off below) so that float32 comparisons hold float32 tolerances.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -105,23 +112,55 @@ def expect(ok: bool, what: str) -> None:
 # type (2^-8 relative) where the float32 sums straddle it
 TOL = {"f32": 1e-4, "bf16": 1.6e-2}
 # absolute tolerance of the fused splat (outputs in [0, 1]): the kernel sums
-# each cell's corners in ascending point index and the plain version by
-# index_add_ (atomics on the card), so float32 sums differ in order; and
-# expf / logf / powf of the CUDA math library differ from PyTorch's by a few
-# ulp
+# each cell's corners in ascending point index and the plain version as a
+# binary tree over them, so float32 sums differ in order; and expf / logf /
+# powf of the CUDA math library differ from PyTorch's by a few ulp
 SPLAT_TOL = 1e-5
 
 
-# bf16 flash shapes of the main paths, (B = streams * heads, Lq, Lk, D):
-# the 64^2 self-attention of 2- and 1-stream calls, the 32^2 maps, and the
-# warped-row blend's rectangular maps at 64^2 and 32^2; each is checked and
-# timed
-FLASH_FWD_SHAPES = [(16, 4096, 4096, 40), (8, 4096, 4096, 40), (16, 1024, 1024, 80),
-                    (8, 1024, 1024, 80), (8, 1024, 4096, 40), (8, 256, 1024, 80)]
-FLASH_BWD_SHAPES = [(8, 4096, 4096, 40), (8, 1024, 1024, 80)]
+def flash_path_shapes(size: int):
+    """bf16 flash shapes of the paths at a size^2 image, (B = streams * heads,
+    Lq, Lk, D): the self-attention of 2- and 1-stream calls at the latent
+    levels whose keys reach 1024 (`use_flash`), the backward of the
+    1-stream calls, and the warped-row blend's rectangular maps (a quarter
+    of the rows) at the two largest levels, which alone have row budgets.
+    Returns (forward, backward) shapes."""
+    ls = size // 8
+    levels = [(res * res, d) for res, d in ((ls, 40), (ls // 2, 80), (ls // 4, 160))
+              if res * res >= 1024]
+    fwd = [(b, l, l, d) for l, d in levels for b in (16, 8)]
+    fwd += [(8, l // 4, l, d) for l, d in levels[:2]]
+    return fwd, [(8, l, l, d) for l, d in levels]
+
+
+# each checked and timed: the 512^2 paths' shapes, then the 1024^2 paths'
+# (128^2 at D 40, 64^2 at D 80, 32^2 at D 160)
+FLASH_FWD_SHAPES = flash_path_shapes(512)[0] + flash_path_shapes(1024)[0]
+FLASH_BWD_SHAPES = flash_path_shapes(512)[1] + flash_path_shapes(1024)[1]
+# float32 (CUDA-core kernels, the card-vs-CPU edits' type): a shape of each
+# class at each head width
+FLASH_F32_FWD = [(16, 4096, 4096, 40), (16, 1024, 1024, 80), (8, 1024, 4096, 40),
+                 (8, 256, 1024, 80), (8, 1024, 1024, 160), (8, 256, 1024, 160)]
+FLASH_F32_BWD = [(8, 4096, 4096, 40), (8, 1024, 1024, 80), (8, 1024, 1024, 160)]
 # checked only: a ragged shape (no multiple of the 64-row tile, D not a
-# multiple of 16)
-FLASH_RAGGED = (3, 200, 1100, 72)
+# multiple of 16), and one past 128 columns at another width
+FLASH_RAGGED = [(3, 200, 1100, 72), (2, 300, 700, 136)]
+
+
+def by_chunks(fn, n: int, *args):
+    """fn over each entry of the leading axis of every tensor in args that
+    has n of them, its outputs concatenated: the plain versions at the
+    1024^2 shapes would hold tens of GB of float32 maps at once."""
+    import torch
+
+    outs = []
+    for i in range(n):
+        part = [a[i:i + 1] if torch.is_tensor(a) and a.dim() and a.shape[0] == n else a
+                for a in args]
+        outs.append(fn(*part))
+    if torch.is_tensor(outs[0]):
+        return torch.cat(outs)
+    return tuple(torch.cat(xs) for xs in zip(*outs))
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -191,18 +230,19 @@ def check_flash(rng_seed: int):
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
     rand = lambda b, n, d, dt: torch.randn(b, n, d, device="cuda", generator=g).to(dt)
     rec = {"flash_fwd": {"shapes": []}, "flash_bwd": {"shapes": []}}
-    # float32 (CUDA-core kernels): a shape of each class and the ragged one
-    f32_fwd = [FLASH_FWD_SHAPES[i] for i in (0, 2, 4, 5)] + [FLASH_RAGGED]
-    f32_bwd = FLASH_BWD_SHAPES + [FLASH_RAGGED]
+    fwd_plain = lambda q, k, v, scale: by_chunks(
+        lambda *a: fa.flash_fwd_plain(*a, scale), q.shape[0], q, k, v)
+    bwd_plain = lambda q, k, v, o, lse, do, scale: by_chunks(
+        lambda *a: fa.flash_bwd_plain(*a, scale), q.shape[0], q, k, v, o, lse, do)
     for kind, dt, fwd_shapes, bwd_shapes in (
-            ("f32", torch.float32, f32_fwd, f32_bwd),
-            ("bf16", torch.bfloat16, FLASH_FWD_SHAPES + [FLASH_RAGGED],
-             FLASH_BWD_SHAPES + [FLASH_RAGGED])):
+            ("f32", torch.float32, FLASH_F32_FWD + FLASH_RAGGED, FLASH_F32_BWD + FLASH_RAGGED),
+            ("bf16", torch.bfloat16, FLASH_FWD_SHAPES + FLASH_RAGGED,
+             FLASH_BWD_SHAPES + FLASH_RAGGED)):
         for b, lq, lk, d in fwd_shapes:
             q, k, v = rand(b, lq, d, dt), rand(b, lk, d, dt), rand(b, lk, d, dt)
             scale = d ** -0.5
             o, lse = fa.flash_fwd_cuda(q, k, v, scale)
-            o_p, lse_p = fa.flash_fwd_plain(q, k, v, scale)
+            o_p, lse_p = fwd_plain(q, k, v, scale)
             torch.cuda.synchronize()
             e_o, e_l = rel_err(o, o_p), abs_err(lse, lse_p)
             log(f"flash_fwd {kind} {(b, lq, lk, d)}: rel err o {e_o:.2e} lse abs {e_l:.2e} "
@@ -210,7 +250,7 @@ def check_flash(rng_seed: int):
             expect(e_o <= TOL[kind] and e_l <= 1e-3, f"flash_fwd {kind} {(b, lq, lk, d)}")
             if kind == "bf16" and (b, lq, lk, d) in FLASH_FWD_SHAPES:
                 ms = device_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale))
-                plain = device_ms(lambda: fa.flash_fwd_plain(q, k, v, scale), 3)
+                plain = device_ms(lambda: fwd_plain(q, k, v, scale), 3)
                 lib, backend = sdpa_ms(True, q, k, v, None, scale)
                 rec["flash_fwd"]["shapes"].append(dict(
                     shape=[b, lq, lk, d], ms=ms, plain_ms=plain, library_ms=lib,
@@ -219,9 +259,9 @@ def check_flash(rng_seed: int):
         for b, lq, lk, d in bwd_shapes:
             q, k, v, do = rand(b, lq, d, dt), rand(b, lk, d, dt), rand(b, lk, d, dt), rand(b, lq, d, dt)
             scale = d ** -0.5
-            o, lse = fa.flash_fwd_plain(q, k, v, scale)
+            o, lse = fwd_plain(q, k, v, scale)
             got = fa.flash_bwd_cuda(q, k, v, o, lse, do, scale)
-            ref = fa.flash_bwd_plain(q, k, v, o, lse, do, scale)
+            ref = bwd_plain(q, k, v, o, lse, do, scale)
             torch.cuda.synchronize()
             errs = [rel_err(x, y) for x, y in zip(got, ref)]
             log(f"flash_bwd {kind} {(b, lq, lk, d)}: rel err dq/dk/dv "
@@ -229,7 +269,7 @@ def check_flash(rng_seed: int):
             expect(max(errs) <= TOL[kind], f"flash_bwd {kind} {(b, lq, lk, d)}")
             if kind == "bf16" and (b, lq, lk, d) in FLASH_BWD_SHAPES:
                 ms = device_ms(lambda: fa.flash_bwd_cuda(q, k, v, o, lse, do, scale))
-                plain = device_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, scale), 3)
+                plain = device_ms(lambda: bwd_plain(q, k, v, o, lse, do, scale), 3)
                 lib, backend = sdpa_ms(False, q, k, v, do, scale)
                 rec["flash_bwd"]["shapes"].append(dict(
                     shape=[b, lq, lk, d], ms=ms, plain_ms=plain, library_ms=lib,
@@ -240,7 +280,7 @@ def check_flash(rng_seed: int):
             log(f"{name} bf16 {tuple(sh['shape'])}: {sh['ms']:.4f} ms, plain {sh['plain_ms']:.4f}, "
                 f"SDPA {sh['library_ms']:.4f} ({sh['library_backend']}), bound "
                 f"{sh['bound'][0]:.4f} ({sh['bound'][1]}), {sh['ms'] / sh['library_ms']:.2f}x SDPA")
-        # the headline fields: the first (largest) shape of each list
+        # the headline fields: the first (largest 512^2) shape of each list
         r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"},
                  max_abs_err=max(sh["max_abs_err"] for sh in r["shapes"]), dtype="bf16")
     return rec
@@ -301,13 +341,28 @@ def shape_counts(shapes: dict) -> str:
     return ", ".join(f"{k[0]} {'x'.join(map(str, k[1:]))}: {n}" for k, n in sorted(shapes.items()))
 
 
-# removal-correlation shapes the paths launch, (H, K budget, L, Lk, D): at
-# 64^2 the self (Lk 4096) and cross (Lk 77) layers, at 32^2 the same at
-# D 80; the editor's budget is seq // 4, the remover's seq // 2
-CORR_SHAPES = {"editor": [(8, 1024, 4096, 4096, 40), (8, 1024, 4096, 77, 40),
-                          (8, 256, 1024, 1024, 80), (8, 256, 1024, 77, 80)],
-               "remover": [(8, 2048, 4096, 4096, 40), (8, 2048, 4096, 77, 40),
-                           (8, 512, 1024, 1024, 80), (8, 512, 1024, 77, 80)]}
+def corr_path_shapes(size: int, mode: str):
+    """Removal-correlation shapes of an edit at a size^2 image, (H, K budget,
+    L, Lk, D): the self (Lk = L) and cross (77 text keys) layers of the two
+    largest latent levels (D 40 and 80); the editor's budget is seq // 4,
+    the remover's seq // 2."""
+    ls = size // 8
+    out = []
+    for res, d in ((ls, 40), (ls // 2, 80)):
+        l = res * res
+        k = l // 4 if mode == "editor" else l // 2
+        out += [(8, k, l, l, d), (8, k, l, 77, d)]
+    return out
+
+
+# (image side, mode) of each path whose correlation shapes are checked and
+# timed; the 768^2 remover (K 4608 past the 4096 rows of 64 chunks) only at
+# its 96^2 self layer, and not run as an edit
+CORR_PATHS = {"editor": (512, "editor"), "remover": (512, "remover"),
+              "editor1024": (1024, "editor"), "remover1024": (1024, "remover"),
+              "remover768": (768, "remover")}
+CORR_SHAPES = {p: corr_path_shapes(*sm) for p, sm in CORR_PATHS.items()}
+CORR_SHAPES["remover768"] = CORR_SHAPES["remover768"][:1]
 
 
 def ptxas_lines(report: str) -> list:
@@ -358,35 +413,32 @@ def kernel_breakdown(fn, iters: int = 5) -> str:
 
 def check_corr(rng_seed: int, live: dict):
     """The correlation kernels against their plain versions at every path
-    shape (float32 and bf16), a planted-tie shape, and the dead rows; bf16
-    timed by device time at every path shape.  `live`: the scene's live
-    rows per (path, resolution)."""
+    shape (float32 at 512^2, bf16 at every size), a planted-tie shape, and
+    the dead rows; bf16 timed by device time at every path shape.  `live`:
+    the scene's live rows per (path, latent side).  The plain versions run a
+    head at a time (at the 1024^2 remover's self layer both maps of all
+    heads are 12 GiB of float32)."""
     import torch
 
     from geodiffuser_tpu_torch.kernels import removal_corr as rc
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    editor_live, remover_live = live["editor", 64], live["remover", 64]
-    # (H, K budget, L base rows, Lk keys, D, tied, live rows, path): the
-    # editor's 64^2 self, 64^2 cross (77 text keys), 32^2 self, 32^2 self
-    # with every inpaint base row equal and every background base row equal,
-    # so that each live row's two maxima are exact ties across lanes and
-    # spans and must take the lowest j; the remover's 64^2 self, whose budget
-    # is seq // 2 = 2048 rows; then the remaining path shapes (32^2 cross,
-    # the remover's 64^2 cross and 32^2 maps).  Live rows are the scene's
-    # (scene_live_rows).
-    shapes = [(8, 1024, 4096, 4096, 40, False, editor_live, "editor"),
-              (8, 1024, 4096, 77, 40, False, editor_live, "editor"),
-              (8, 256, 1024, 1024, 80, False, editor_live // 4, "editor"),
-              (8, 256, 1024, 1024, 80, True, editor_live // 4, None),
-              (8, 2048, 4096, 4096, 40, False, remover_live, "remover"),
-              (8, 256, 1024, 77, 80, False, live["editor", 32], "editor"),
-              (8, 2048, 4096, 77, 40, False, remover_live, "remover"),
-              (8, 512, 1024, 1024, 80, False, live["remover", 32], "remover"),
-              (8, 512, 1024, 77, 80, False, live["remover", 32], "remover")]
+    # (H, K budget, L base rows, Lk keys, D, tied, live rows, path): every
+    # path shape with the scene's live rows (scene_live_rows), and the
+    # editor's 32^2 self shape with every inpaint base row equal and every
+    # background base row equal, so that each live row's two maxima are
+    # exact ties across lanes and spans and must take the lowest j
+    shapes = [(*sh, False, live[path, math.isqrt(sh[2])], path)
+              for path, path_shapes in CORR_SHAPES.items() for sh in path_shapes]
+    shapes.insert(3, (8, 256, 1024, 1024, 80, True, live["editor", 32], None))
+    fwd_plain = lambda *a: by_chunks(lambda qe, ke, qb, kb: rc.corr_fwd_plain(
+        qe, ke, qb, kb, *a[4:]), a[0].shape[0], *a[:4])
+    bwd_plain = lambda *a: by_chunks(rc.corr_bwd_plain, a[0].shape[0], *a)
     rec = {"corr_fwd": {"shapes": []}, "corr_bwd": {"shapes": []}}
     for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for h, kr, l, lk, d, tied, live_rows, path in shapes:
+            if kind == "f32" and path not in ("editor", "remover", None):
+                continue   # float32 serves the tiny card-vs-CPU edits only
             live_rows = min(live_rows, kr)
             qe = torch.randn(h, kr, d, device="cuda", generator=g).to(dt)
             ke = torch.randn(h, lk, d, device="cuda", generator=g).to(dt)
@@ -402,7 +454,7 @@ def check_corr(rng_seed: int, live: dict):
             scale = d ** -0.5
             name = f"{(h, kr, l, lk, d)}{' tied' if tied else ''} live {live_rows}"
             got = rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale)
-            ref = rc.corr_fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale)
+            ref = fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale)
             torch.cuda.synchronize()
             # values: float32 sums of the same bf16-rounded probabilities, whose
             # rounding may differ by one step where exp(s - lse) and softmax
@@ -410,17 +462,19 @@ def check_corr(rng_seed: int, live: dict):
             # kernel's index must attain the plain maximum of its masked columns
             e_p = max(rel_err(got[0][:, :live_rows], ref[0][:, :live_rows]),
                       rel_err(got[1][:, :live_rows], ref[1][:, :live_rows]))
-            pe = rc._probs(qe, ke, scale).float()
-            pb = rc._probs(qb, kb, scale).float()
-            corr = torch.matmul(pe, pb.transpose(-1, -2))
-            e_idx, same = [], []
-            for col, (p_ref, j_got, j_ref) in ((inp, (ref[0], got[2], ref[2])),
-                                               (bg, (ref[1], got[3], ref[3]))):
-                masked = torch.where(col[None, None] > 0.5, corr, rc.MASKED)
-                at_idx = torch.gather(masked, 2, j_got.long()[..., None])[..., 0][:, :live_rows]
-                e_idx.append(rel_err(at_idx, p_ref[:, :live_rows]))
-                same.append(float((j_got[:, :live_rows] == j_ref[:, :live_rows]).float().mean()))
-            del corr, masked, pe, pb
+            at_idx = {0: [], 1: []}   # the plain correlation at the kernel's indices, by head
+            for hh in range(h):
+                pe = rc._probs(qe[hh:hh + 1], ke[hh:hh + 1], scale).float()
+                pb = rc._probs(qb[hh:hh + 1], kb[hh:hh + 1], scale).float()
+                corr = torch.matmul(pe, pb.transpose(-1, -2))
+                for m, col in ((0, inp), (1, bg)):
+                    masked = torch.where(col[None, None] > 0.5, corr, rc.MASKED)
+                    at_idx[m].append(torch.gather(masked, 2, got[2 + m][hh:hh + 1].long()[..., None])
+                                     [..., 0][:, :live_rows])
+                del pe, pb, corr, masked
+            e_idx = [rel_err(torch.cat(at_idx[m]), ref[m][:, :live_rows]) for m in (0, 1)]
+            same = [float((got[n][:, :live_rows] == ref[n][:, :live_rows]).float().mean())
+                    for n in (2, 3)]
             dead_ok = all(bool((got[n][:, live_rows:] == v).all())
                           for n, v in ((0, rc.NEG_INF), (1, rc.NEG_INF), (2, 0), (3, 0)))
             tie_ok = not tied or bool((got[2][:, :live_rows] == first_in).all()
@@ -449,14 +503,14 @@ def check_corr(rng_seed: int, live: dict):
             bwd = lambda fn, res, gi=g_in, gb=g_bg, **kw: fn(
                 qe, ke, qb, kb, res[2], res[3], gi, gb, rm, res[4], res[5], scale, **kw)
             bgot = bwd(rc.corr_bwd_cuda, ref)
-            bref = bwd(rc.corr_bwd_plain, ref)
+            bref = bwd(bwd_plain, ref)
             # and the chain the edits run, the kernel backward on the kernel
             # forward's indices and LSEs, against the plain backward on the
             # plain forward's; a row whose index differs (a near-tie) gets
             # no cotangent on either side
             gi, gb = (torch.where(got[n] == ref[n], gr, 0) for n, gr in ((2, g_in), (3, g_bg)))
             chain = bwd(rc.corr_bwd_cuda, got, gi, gb)
-            chain_ref = bwd(rc.corr_bwd_plain, ref, gi, gb)
+            chain_ref = bwd(bwd_plain, ref, gi, gb)
             torch.cuda.synchronize()
             errs = [rel_err(x, y) for x, y in zip(bgot, bref)]
             e_chain = [rel_err(x, y) for x, y in zip(chain, chain_ref)]
@@ -469,7 +523,7 @@ def check_corr(rng_seed: int, live: dict):
             if kind != "bf16" or path is None:
                 continue
             ms = device_ms(lambda: rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale))
-            plain = device_ms(lambda: rc.corr_fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale), 3)
+            plain = device_ms(lambda: fwd_plain(qe, ke, qb, kb, inp, bg, rm, scale), 1)
             nb = 2 * (live_rows * d + 2 * lk * d + l * d) * h + 8 * l + 4 * kr + 16 * h * kr
             ops = 2 * h * (live_rows + l) * lk * d + 2 * h * live_rows * l * lk
             rec["corr_fwd"]["shapes"].append(dict(
@@ -479,9 +533,9 @@ def check_corr(rng_seed: int, live: dict):
                                 abs_err(got[1][:, :live_rows], ref[1][:, :live_rows]))))
             b_ms = device_ms(lambda: bwd(rc.corr_bwd_cuda, ref))
             # the remover's keys are its detached base keys: no d_ke on its path
-            b_path = b_ms if path == "editor" else device_ms(
+            b_path = b_ms if path.startswith("editor") else device_ms(
                 lambda: bwd(rc.corr_bwd_cuda, ref, need_dke=False))
-            b_plain = device_ms(lambda: bwd(rc.corr_bwd_plain, ref), 3)
+            b_plain = device_ms(lambda: bwd(bwd_plain, ref), 1)
             nb = 2 * h * d * (3 * live_rows + 2 * lk) + 8 * h * live_rows + 4 * kr \
                 + 4 * h * d * (live_rows + lk)
             rec["corr_bwd"]["shapes"].append(dict(
@@ -500,7 +554,7 @@ def check_corr(rng_seed: int, live: dict):
     timed = {tuple(sh["shape"]) for sh in rec["corr_fwd"]["shapes"]}
     expect(timed == {sh for shapes in CORR_SHAPES.values() for sh in shapes},
            f"corr: timed shapes {sorted(timed)} are not the paths' shapes")
-    for r in rec.values():   # the headline fields: the first (largest editor) shape
+    for r in rec.values():   # the headline fields: the first (largest 512^2 editor) shape
         r.update({k: v for k, v in r["shapes"][0].items() if k != "max_abs_err"},
                  max_abs_err=max(sh["max_abs_err"] for sh in r["shapes"]), dtype="bf16")
     return rec
@@ -575,18 +629,21 @@ def check_splat_case(ks, name: str, src, coords, radius, tau, z_beta, out_hw, le
     got = ks.splat_fused_cuda(src, coords, radius, tau, z_beta, out_hw)
     again = ks.splat_fused_cuda(src, coords, radius, tau, z_beta, out_hw)
     ref = ks.splat_fused_plain(src, coords, radius, tau, z_beta, out_hw)
-    # the plain version sums by index_add_, atomics on the card: its own
-    # spread between two runs, beside the kernel's error
-    spread = abs_err(ref, ks.splat_fused_plain(src, coords, radius, tau, z_beta, out_hw))
+    # the plain version is the yardstick: its sums run in a fixed order, so
+    # its own spread between two runs must be 0
+    ref2 = ks.splat_fused_plain(src, coords, radius, tau, z_beta, out_hw)
     torch.cuda.synchronize()
+    spread = abs_err(ref, ref2)
     err = abs_err(got, ref)
     same = torch.equal(got, again)
     covered = float((ref.abs().sum(-1) > 0).float().mean())
     log(f"splat_fused {name} r={radius} tau={tau}: max abs err {err:.2e} "
         f"(tol {SPLAT_TOL:.0e}; the plain version's spread in two runs {spread:.2e}), "
-        f"cells reached {covered:.4f}, two launches equal: {same}")
+        f"cells reached {covered:.4f}, two launches equal: {same}, "
+        f"two plain runs equal: {torch.equal(ref, ref2)}")
     expect(got.shape == ref.shape and err <= SPLAT_TOL and covered > least, f"splat_fused {name}")
     expect(same or not own, f"splat_fused {name}: two launches differ")
+    expect(torch.equal(ref, ref2) or not own, f"splat_fused {name}: two plain runs differ")
     return got, err
 
 
@@ -747,13 +804,19 @@ EDITOR_TRANSFORM = dict(tx=0.08, ry=15.0)
 STITCH_TRANSFORM = dict(tx=0.1)
 # scales of the stitch zoomed far out (splat cases)
 STITCH_ZOOMS = (0.05, 0.01)
-# kernels each path must launch; the stitch composite's one splat exactly
-PATH_KERNELS = {
-    "editor": {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None},
-    "remover": {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None},
-    "stitch": {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None,
-               "splat_fused": 1},
-}
+LARGE = 1024                     # image side of the large editor and remover edits
+# kernels each path must launch; the stitch composite's one splat exactly.
+# "options": the 512^2 editor with every run option on (null-text, the
+# fast-start inner loop, the attention constraints, the inversion cached in
+# an experiment folder), whose constrained self layers take the explicit
+# removal loss and its cross layers the kernel
+FOUR = {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None}
+PATH_KERNELS = {"editor": FOUR, "remover": FOUR, "stitch": dict(FOUR, splat_fused=1),
+                "options": FOUR, "editor1024": FOUR, "remover1024": FOUR}
+# the options edit: 4 steps, whose one optimize step (i = 2: i >= 0.2 n,
+# i < 0.65 n) is the fast start's, with two inner iterations
+OPTIONS_CFG = dict(num_ddim_steps=4, fast_start_steps=0.2, num_first_optim_steps=2,
+                   apply_attention_constraints=True)
 
 
 def launch_counts():
@@ -764,37 +827,44 @@ def launch_counts():
     return fa.LAUNCHES, rc.LAUNCHES, ks.LAUNCHES
 
 
-def run_path(args, pipe, path: str):
-    """One full-width edit of `path` through the API a user calls, with
-    every launch count set to 0 just before and read just after."""
-    import torch
-
+def path_edit(args, pipe, path: str):
+    """The edit of `path` through the API a user calls, as a callable."""
     from geodiffuser_tpu_torch.config import EditConfig
     from geodiffuser_tpu_torch.core.editor import EditSession, perform_stitch
     from geodiffuser_tpu_torch.ops import camera
 
-    image, depth, mask = build_scene(SIZE)
-    if path == "editor":
-        sess = EditSession(pipe, EditConfig(num_ddim_steps=args.steps, cache_inversion=False))
-        go = lambda: sess.run(image, depth, mask, camera.compose_transform(**EDITOR_TRANSFORM))
-    elif path == "remover":
-        cfg = EditConfig(edit_type="geometry_remover", num_ddim_steps=args.steps,
+    size = pipe.image_size
+    steps = args.steps if size == SIZE else args.large_steps
+    image, depth, mask = build_scene(size)
+    if path.startswith("editor"):
+        sess = EditSession(pipe, EditConfig(num_ddim_steps=steps, cache_inversion=False))
+        return lambda: sess.run(image, depth, mask, camera.compose_transform(**EDITOR_TRANSFORM))
+    if path.startswith("remover"):
+        cfg = EditConfig(edit_type="geometry_remover", num_ddim_steps=steps,
                          cache_inversion=False)
         sess = EditSession(pipe, cfg)
-        go = lambda: sess.run(image, depth, mask, np.eye(4))
-    else:
-        cfg = EditConfig(edit_type="geometry_stitch", num_ddim_steps=args.steps,
-                         cache_inversion=False)
-        go = lambda: perform_stitch(pipe, stitch_background(args.seed), image, mask, depth,
-                                    camera.compose_transform(**STITCH_TRANSFORM), cfg=cfg)
+        return lambda: sess.run(image, depth, mask, np.eye(4))
+    cfg = EditConfig(edit_type="geometry_stitch", num_ddim_steps=steps, cache_inversion=False)
+    return lambda: perform_stitch(pipe, stitch_background(args.seed), image, mask, depth,
+                                  camera.compose_transform(**STITCH_TRANSFORM), cfg=cfg)
+
+
+def run_path(args, pipe, path: str, go=None, steps=None):
+    """Run `go` (by default the edit of `path`, at the steps of its size)
+    with every launch count set to 0 just before and read just after; check
+    its result.  Returns (launches, launches by shape, result)."""
+    import torch
 
     from geodiffuser_tpu_torch.kernels import flash_attention as fa
     from geodiffuser_tpu_torch.kernels import removal_corr as rc
 
+    go = go or path_edit(args, pipe, path)
+    size = pipe.image_size
     for counts in launch_counts():
         counts.update(dict.fromkeys(counts, 0))
     fa.SHAPES.clear()
     rc.SHAPES.clear()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -808,7 +878,8 @@ def run_path(args, pipe, path: str):
     torch.cuda.synchronize()
     launches = {k: v for counts in launch_counts() for k, v in counts.items()}
     shapes = {**fa.SHAPES, **rc.SHAPES}
-    log(f"{path} ({args.steps} DDIM steps): timings "
+    steps = steps or (args.steps if size == SIZE else args.large_steps)
+    log(f"{path} ({size}^2, {steps} DDIM steps): timings "
         f"{json.dumps({k: round(v, 3) for k, v in res.timings.items()})}")
     log(f"{path}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{path}: kernel launches {launches}")
@@ -816,15 +887,87 @@ def run_path(args, pipe, path: str):
     for i, logs in sorted(res.loss_log.items()):
         log(f"{path}: step {i} loss total {logs['total']:.4f} self/removal "
             f"{logs['self/removal']:.4f} self/sim {logs['self/sim']:.4f}")
-    expect(res.images.shape == (2, SIZE, SIZE, 3), f"{path}: image shape")
-    expect(res.edited_image.shape == (SIZE, SIZE, 3), f"{path}: edited image shape")
+    expect(res.images.shape == (2, size, size, 3), f"{path}: image shape")
+    expect(res.edited_image.shape == (size, size, 3), f"{path}: edited image shape")
     expect(bool(torch.isfinite(res.latents).all()), f"{path}: final latents finite")
-    expect(len(res.loss_log) >= 2 and all(math.isfinite(v) for lg in res.loss_log.values()
+    expect(len(res.loss_log) >= 1 and all(math.isfinite(v) for lg in res.loss_log.values()
                                           for v in lg.values()), f"{path}: loss logs finite")
     for name, want in PATH_KERNELS[path].items():
         ok = launches[name] > 0 if want is None else launches[name] == want
         expect(ok, f"{path}: kernel {name} launched {launches[name]} times on the main path")
-    return launches, shapes
+    return launches, shapes, res
+
+
+def run_options(args, pipe):
+    """The 512^2 editor with every run option on, twice, each run in a new
+    session sharing one experiment folder: the first inverts and writes
+    the inversion there, the second must read it from the disk (no DDIM
+    inversion).  Returns the first run's (launches, launches by shape)."""
+    import tempfile
+
+    import torch
+
+    from geodiffuser_tpu_torch.config import EditConfig
+    from geodiffuser_tpu_torch.core import inversion
+    from geodiffuser_tpu_torch.core.editor import EditSession
+    from geodiffuser_tpu_torch.ops import camera
+    from geodiffuser_tpu_torch.utils import exp_io
+
+    image, depth, mask = build_scene(SIZE)
+    cfg = EditConfig(**OPTIONS_CFG)
+    inverted, invert = [], inversion.ddim_invert
+    inversion.ddim_invert = lambda *a, **kw: (inverted.append(1), invert(*a, **kw))[1]
+    try:
+        with tempfile.TemporaryDirectory() as folder:
+            runs = []
+            for n in (1, 2):
+                sess = EditSession(pipe, cfg)
+                go = lambda: sess.run(image, depth, mask,
+                                      camera.compose_transform(**EDITOR_TRANSFORM),
+                                      use_null_text=True, exp_folder=folder)
+                runs.append(run_path(args, pipe, "options", go, cfg.num_ddim_steps))
+                cached = os.path.exists(os.path.join(folder, exp_io.INVERSION_CACHE_FILE))
+                log(f"options run {n}: DDIM inversions so far {len(inverted)}, inversion file "
+                    f"in the experiment folder: {cached}")
+                expect(cached and len(inverted) == 1,
+                       f"options run {n}: the inversion is inverted once and read from the disk")
+    finally:
+        inversion.ddim_invert = invert
+    (l1, s1, r1), (_, _, r2) = runs
+    log(f"options: loss logs {sorted(r1.loss_log)}, inversion s {r1.timings['inversion']:.3f} "
+        f"then {r2.timings['inversion']:.3f} (read from the disk), final latents of the two "
+        f"runs rel diff {rel_err(r2.latents, r1.latents):.2e}")
+    expect(len(r1.loss_log) == 1, "options: one optimize step (the fast start's)")
+    del runs
+    torch.cuda.empty_cache()
+    return l1, s1
+
+
+def run_reconstruct(args, pipe) -> dict:
+    """The scene inverted (CFG DDIM, the editor's guidance) and sampled back
+    with `reconstruct`: the round trip's latent error."""
+    import torch
+
+    from geodiffuser_tpu_torch.config import EditConfig
+    from geodiffuser_tpu_torch.core import inversion
+
+    cfg = EditConfig()
+    image, _, _ = build_scene(SIZE)
+    t0 = time.time()
+    latent0 = pipe.encode_image(torch.as_tensor(image.astype(np.float32) / 255.0, device="cuda"))
+    ctx_c, ctx_u = pipe.encode_text(["a thing"]), pipe.encode_text([cfg.uncond_text])
+    all_latents, _ = inversion.ddim_invert(pipe, latent0, ctx_u, ctx_c, cfg.guidance_scale,
+                                           args.steps)
+    back = inversion.reconstruct(pipe, all_latents[-1], ctx_u, ctx_c, cfg.guidance_scale,
+                                 args.steps)
+    torch.cuda.synchronize()
+    out = dict(steps=args.steps, guidance=cfg.guidance_scale, seconds=time.time() - t0,
+               latent_rel_err=rel_err(back, latent0), latent_abs_err=abs_err(back, latent0))
+    log(f"reconstruct ({SIZE}^2, {args.steps} steps, guidance {cfg.guidance_scale}): "
+        f"latent rel err {out['latent_rel_err']:.3e}, abs {out['latent_abs_err']:.3e}, "
+        f"{out['seconds']:.2f} s")
+    expect(back.shape == latent0.shape and bool(torch.isfinite(back).all()), "reconstruct")
+    return out
 
 
 def report_profile(path: str, prof, wall_s: float) -> None:
@@ -939,7 +1082,10 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=6, help="DDIM steps of each edit (50 = default edit)")
+    ap.add_argument("--steps", type=int, default=6,
+                    help="DDIM steps of each 512^2 edit (50 = default edit)")
+    ap.add_argument("--large-steps", type=int, default=2,
+                    help="DDIM steps of the 1024^2 editor and remover edits (step 0 optimizes)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace each edit with torch.profiler and print device time by kernel")
@@ -987,8 +1133,8 @@ def main(argv=None) -> int:
         log(f"flash checks and timings: {time.time() - t0:.1f} s")
     if not only or "corr" in only:
         t0 = time.time()
-        live = {(path, r): n for path in CORR_SHAPES
-                for r, n in scene_live_rows(SIZE, path).items()}
+        live = {(path, r): n for path, (size, mode) in CORR_PATHS.items()
+                for r, n in scene_live_rows(size, mode).items()}
         log(f"scene live rows (path, latent side): {live}")
         rec.update(check_corr(args.seed, live))
         log(f"corr checks and timings: {time.time() - t0:.1f} s")
@@ -1013,7 +1159,15 @@ def main(argv=None) -> int:
     t0 = time.time()
     unet = check_unet_flash(pipe, args.seed)
     log(f"unet phase: {time.time() - t0:.1f} s")
-    runs = {path: run_path(args, pipe, path) for path in PATH_KERNELS}
+    runs = {path: run_path(args, pipe, path)[:2] for path in ("editor", "remover", "stitch")}
+    t0 = time.time()
+    runs["options"] = run_options(args, pipe)
+    log(f"options phase (two edits): {time.time() - t0:.1f} s")
+    recon = run_reconstruct(args, pipe)
+    large = dataclasses.replace(pipe, image_size=LARGE)   # the same modules
+    for path in ("editor1024", "remover1024"):
+        runs[path] = run_path(args, large, path)[:2]
+    del large
     by_path = {path: launches for path, (launches, _) in runs.items()}
     timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
              | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES}
@@ -1049,6 +1203,7 @@ def main(argv=None) -> int:
             entry["library_backend"] = r["library_backend"]
         if name == "flash_bwd":
             entry["unet_check"] = unet
+            entry["reconstruct"] = recon
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     return finish(card)

@@ -42,6 +42,17 @@ def normalize_logs(logs: Dict[str, float]) -> Dict[str, float]:
     return {k: (v / n if k != "num_layers" else v) for k, v in logs.items()}
 
 
+def attn_probs(q, k, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) with float32 logits, in float32."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return torch.softmax(logits * scale, dim=-1)
+
+
+def attn_out(probs, v) -> torch.Tensor:
+    """probs (cast to v's type) @ v, float32 sums, in v's type."""
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
 def fast_attention(q, k, v, scale: float) -> torch.Tensor:
     """Attention routed through the flash kernel for CUDA tensors when the
     map is large (`use_flash`); plain math otherwise.  Differentiable: the
@@ -88,6 +99,26 @@ def removal_loss_fused(q_e, k_r, q_b, k_b, ms: MaskSet, scale: float) -> torch.T
         qe_rows, k_r, q_b.detach(), k_b.detach(), ms.inpaint, ms.background, row_mask, scale
     )
     d_bg = torch.sqrt(((ms.pos[rows][None] - ms.pos[j_bg.long()]) ** 2).sum(-1) + 1e-12)
+    return _removal_per_row_loss(p_in, p_bg, d_bg, row_mask, ms.inpaint.sum(), h)
+
+
+def removal_loss(probs_rows, base_probs, ms: MaskSet) -> torch.Tensor:
+    """The removal correlation loss from materialized maps: probs_rows
+    (H, K, L) are the edit stream's probabilities at the budgeted inpaint
+    rows, base_probs (H, L, L) the base stream's (attention_processors.py:
+    248-280).  Used only with the attention constraints, where the maps
+    exist anyway; `removal_loss_fused` otherwise."""
+    h = probs_rows.shape[0]
+    rows, row_mask = ms.inpaint_rows, ms.inpaint_row_mask
+    corr = torch.matmul(probs_rows.float(), base_probs.detach().float().transpose(-1, -2))
+    neg = torch.tensor(-1e9, dtype=torch.float32, device=corr.device)
+    corr_in = torch.where(ms.inpaint[None, None, :] > 0.5, corr, neg)
+    corr_bg = torch.where(ms.background[None, None, :] > 0.5, corr, neg)
+    # amax splits the gradient between tied maxima, as jnp.max does
+    p_in = torch.amax(corr_in, dim=-1)
+    p_bg = torch.amax(corr_bg, dim=-1)
+    j_bg = torch.argmax(corr_bg, dim=-1)
+    d_bg = torch.sqrt(((ms.pos[rows][None] - ms.pos[j_bg]) ** 2).sum(-1) + 1e-12)
     return _removal_per_row_loss(p_in, p_bg, d_bg, row_mask, ms.inpaint.sum(), h)
 
 
@@ -169,6 +200,19 @@ def _warp_queries_rows(q_base, ms: MaskSet, state: EditState, rows) -> torch.Ten
     return out.reshape(k, h, d).permute(1, 0, 2).to(q_base.dtype).detach()
 
 
+def _constraint_bias(ms: MaskSet, lk: int) -> torch.Tensor:
+    """Additive -1000 bias (L, lk) of the self-attention constraints that
+    the reference's compute_attention intends (attention_sharing.py:37-42;
+    its chained boolean indexing assigns to a copy): rows inside the warped
+    object take no keys outside the object, background rows none inside."""
+    rows_fgw = ms.mask_new_warped >= 0.5
+    cols_not_fg = ms.mask_warp < 0.5
+    rows_bg = ms.background >= 0.5
+    cols_fg = ms.mask_warp >= 0.5
+    bias = torch.where(rows_fgw[:, None] & cols_not_fg[None, :lk], -1000.0, 0.0)
+    return bias + torch.where(rows_bg[:, None] & cols_fg[None, :lk], -1000.0, 0.0)
+
+
 def _branch_logs(is_cross: bool, **vals) -> Dict[str, torch.Tensor]:
     logs = zero_logs()
     prefix = "cross" if is_cross else "self"
@@ -180,9 +224,9 @@ def _branch_logs(is_cross: bool, **vals) -> Dict[str, torch.Tensor]:
 
 def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale: float):
     """AttentionGeometryEdit edit-stream output + losses
-    (attention_processors.py:384-624)."""
-    if state.apply_constraints:
-        raise NotImplementedError("apply_attention_constraints=True is not ported yet")
+    (attention_processors.py:384-624).  With the attention constraints the
+    self layers' edit attention is explicit: logits plus `_constraint_bias`,
+    the softmax in bf16, and the removal loss from those maps."""
     b_i, e_i = state.base_idx, state.edit_idx
     q_b, k_b, v_b = q[b_i].detach(), k[b_i].detach(), v[b_i].detach()
     q_e = q[e_i]
@@ -192,7 +236,8 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
     # No-loss blend over the warped-row budget (CFG steps); the host selects
     # full_blend when any resolution's warped mask overflows the budget.
     if (not state.compute_losses and state.past_obj_edit is False
-            and not state.full_blend and ms.warped_rows is not None):
+            and not state.full_blend and ms.warped_rows is not None
+            and not state.apply_constraints):
         rows = ms.warped_rows
         q_eb_rows = _warp_queries_rows(q_b, ms, state, rows)
         edit_rows = fast_attention(q_eb_rows, k_b, v_b, scale).detach()
@@ -208,7 +253,15 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
     past_obj = state.past_obj_edit
     if past_obj is None:
         past_obj = state.cur_step >= state.obj_edit_thresh
-    replace_out = fast_attention(q_e, k_r, v_b, scale)
+    use_explicit = state.apply_constraints and not is_cross
+    if use_explicit:
+        logits = torch.matmul(q_e.float(), k_r.float().transpose(-1, -2)) * scale
+        logits = logits + _constraint_bias(ms, logits.shape[-1])[None]
+        probs_full = torch.softmax(logits, dim=-1).to(torch.bfloat16)
+        replace_out = attn_out(probs_full, v_b)
+        probs_rows = probs_full[:, ms.inpaint_rows] if state.compute_losses else None
+    else:
+        replace_out = fast_attention(q_e, k_r, v_b, scale)
     if past_obj and not state.compute_losses:
         # diffusion correction: the shared output would feed nothing (the
         # JAX package's compiler deletes this side the same way)
@@ -223,7 +276,10 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
         w = state.weights_cross if is_cross else state.weights_self
         sim = background_preservation_loss(edit_out, replace_out, ms.background)
         movement = object_placement_loss(edit_out, replace_out, ms.mask_new_warped)
-        removal = removal_loss_fused(q_e, k_r, q_b, k_b, ms, scale)
+        if use_explicit:
+            removal = removal_loss(probs_rows, attn_probs(q_b, k_b, scale).to(torch.bfloat16), ms)
+        else:
+            removal = removal_loss_fused(q_e, k_r, q_b, k_b, ms, scale)
         smooth = smoothness_loss(replace_out)
         if l >= state.amodal_min_seq:
             amodal = amodal_loss(edit_out, replace_out, ms)

@@ -14,7 +14,10 @@ JAX package's compiled step programs are plain functions here, run eagerly:
    step's taps, then the DDIM step, base-trajectory pinning and the latent
    warp-replace (editor mode);
  * the CFG-only tail past the optimize and latent-replace windows is the
-   same CFG step in a loop, with the warp operator of the tail's first step.
+   same CFG step in a loop, with the warp operator of the tail's first step;
+ * run options: the on-disk inversion cache of an experiment folder,
+   null-text inversion (per-step uncond embeddings), the fast-start inner
+   loop of the first optimize step and the attention constraints.
 
 The XLA compile machinery of the JAX package (precompile, lowering, the
 persistent compile cache) has no counterpart: PyTorch runs eagerly.
@@ -41,6 +44,7 @@ from geodiffuser_tpu_torch.kernels import splat as splat_kernel
 from geodiffuser_tpu_torch.ops import image as image_ops
 from geodiffuser_tpu_torch.ops import splat as splat_ops
 from geodiffuser_tpu_torch.ops import transform_field as tf_ops
+from geodiffuser_tpu_torch.utils import exp_io
 
 log = logging.getLogger(__name__)
 
@@ -65,7 +69,8 @@ def _attention_resolutions(latent_size: int) -> tuple:
 
 class EditSession:
     """One (pipeline, config) pair; reuse it across edits to reuse the
-    in-memory inversion memo."""
+    in-memory inversion memo (an experiment folder passed to `run` adds
+    the on-disk tier)."""
 
     def __init__(self, pipeline: Pipeline, cfg: EditConfig, device="cuda"):
         dev = resolve_device(device)
@@ -73,10 +78,6 @@ class EditSession:
             raise ValueError(f"session device {dev} differs from the pipeline's {pipeline.device}")
         if cfg.edit_type not in EDIT_TYPES:
             raise ValueError(f"unknown edit_type {cfg.edit_type!r}; expected one of {EDIT_TYPES}")
-        if (cfg.apply_attention_constraints or cfg.perform_inversion
-                or (cfg.fast_start_steps > 0.0 and cfg.num_first_optim_steps > 1)):
-            raise NotImplementedError("attention constraints, null-text inversion and the "
-                                      "fast-start inner loop are not ported yet")
         self.pipeline = pipeline
         self.cfg = cfg
         self.device = dev
@@ -107,11 +108,28 @@ class EditSession:
             h.update(b"\x00")
         return h.hexdigest()
 
-    def _inv_cache_put(self, key: str, all_latents: torch.Tensor) -> None:
+    def _inv_cache_get(self, key: str, exp_folder: Optional[str]) -> Optional[torch.Tensor]:
+        """The memoized trajectory of `key`, else the one cached in
+        `exp_folder` (then memoized), else None."""
+        if key in self._inv_mem:
+            self._inv_mem.move_to_end(key)
+            return self._inv_mem[key]
+        if exp_folder is not None:
+            cached = exp_io.load_inversion(exp_folder, key)
+            if cached is not None:
+                all_latents = torch.as_tensor(cached, dtype=torch.float32, device=self.device)
+                self._inv_cache_put(key, all_latents, None)
+                return all_latents
+        return None
+
+    def _inv_cache_put(self, key: str, all_latents: torch.Tensor,
+                       exp_folder: Optional[str]) -> None:
         self._inv_mem[key] = all_latents
         self._inv_mem.move_to_end(key)
         while len(self._inv_mem) > 4:
             self._inv_mem.popitem(last=False)
+        if exp_folder is not None:
+            exp_io.save_inversion(exp_folder, key, all_latents.cpu().numpy())
 
     # ------------------------------------------------------------------ setup
     def _preprocess(self, image, depth, image_mask, transform):
@@ -255,7 +273,14 @@ class EditSession:
             torch.cuda.synchronize(self.device)
 
     def run(self, image: np.ndarray, depth: np.ndarray, image_mask: np.ndarray,
-            transform: np.ndarray, prompt: str = "", progress=None) -> EditResult:
+            transform: np.ndarray, prompt: str = "", progress=None,
+            use_null_text: Optional[bool] = None, exp_folder: Optional[str] = None
+            ) -> EditResult:
+        """One edit.  `use_null_text` overrides `cfg.perform_inversion`
+        (null-text optimization of the uncond embedding after the
+        inversion); `exp_folder` (an existing directory) adds the on-disk
+        tier of the inversion cache, read before and written after an
+        inversion."""
         cfg = self.cfg
         dev = self.device
         timings: Dict[str, float] = {}
@@ -280,15 +305,20 @@ class EditSession:
 
         t_inv = time.time()
         inv_key = self.inversion_key(image, prompt) if cfg.cache_inversion else None
-        all_latents = self._inv_mem.get(inv_key) if inv_key is not None else None
+        all_latents = self._inv_cache_get(inv_key, exp_folder) if inv_key is not None else None
         if all_latents is None:
             all_latents, _ = inversion.ddim_invert(
                 self.pipeline, latent0, ctx_uncond, ctx_cond, guidance_scale=cfg.guidance_scale,
                 num_steps=cfg.num_ddim_steps, cfg_free=prompt == cfg.uncond_text)
             if inv_key is not None:
-                self._inv_cache_put(inv_key, all_latents)
-        else:
-            self._inv_mem.move_to_end(inv_key)
+                self._inv_cache_put(inv_key, all_latents, exp_folder)
+        # null-text optimization (perform_inversion, reference editor.py:581-589;
+        # off by default, as in the reference)
+        uncond_per_step = None
+        if cfg.perform_inversion if use_null_text is None else use_null_text:
+            uncond_per_step = inversion.null_text_optimization(
+                self.pipeline, all_latents, ctx_uncond, ctx_cond, cfg.guidance_scale,
+                cfg.num_ddim_steps)
         self._sync()
         timings["inversion"] = time.time() - t_inv
 
@@ -335,10 +365,19 @@ class EditSession:
                         if i < optimize_frac * n and i % cfg.skip_optim_steps == 0] + [-1])
         # past both the optimize and latent-replace windows every step is a
         # plain CFG step sharing the warp operator of the tail's first step
+        # (not under null-text, whose steps each have their own uncond
+        # embedding: there every step takes its own operator)
         tail_start = max(last_opt + 1, int(math.ceil(cfg.latent_replace * n)))
+        if uncond_per_step is not None:
+            tail_start = n
         wm_cache: Dict = {}
+        first_optim_done = False
         for i, t in enumerate(timesteps):
             t = int(t)
+            if uncond_per_step is not None:
+                # both uncond streams take this step's embedding (editor.py:165-168)
+                context4 = context4.clone()
+                context4[0] = context4[1] = uncond_per_step[i][0]
             win, obj = self._phase_flags(i)
             wm_i = min(i, tail_start) if tail_start < n else i
             wm_key = (radius_sched[wm_i], round(tau_sched[wm_i], 6))
@@ -353,10 +392,18 @@ class EditSession:
             if do_optimize:
                 lr_eff = (lr_first if cfg.use_optimizer
                           else optimization.effective_lr(cfg.lr, i, cfg.skip_optim_steps, n))
-                latents2, context4, sgd_state, logs_host, taps = self._optimize_step(
-                    latents2, context4, t, masks, i, weights, radius_sched[i], tau_sched[i],
-                    lr_eff, sgd_state, wm, win, obj)
-                record(i, logs_host)
+
+                def step(lat2, ctx4, sgd):
+                    out = self._optimize_step(lat2, ctx4, t, masks, i, weights, radius_sched[i],
+                                              tau_sched[i], lr_eff, sgd, wm, win, obj)
+                    record(i, out[3])   # the adaptive weights of the next iteration
+                    return out
+
+                n_inner = (cfg.num_first_optim_steps
+                           if not first_optim_done and cfg.fast_start_steps > 0.0 else 1)
+                first_optim_done = True
+                latents2, context4, sgd_state, logs_host, taps = optimize_iterations(
+                    step, n_inner, latents2, context4, sgd_state)
             latents2 = self._cfg_step(
                 latents2, context4, t, masks, i, weights, radius_sched[i], tau_sched[i],
                 all_latents[n - 1 - i], i < cfg.latent_replace * n, wm, win, obj, full_blend,
@@ -393,6 +440,25 @@ class EditSession:
         mask_source = ((res_mask + mask_bg) > 0.5) * 1.0
         return image_ops.masked_histogram_matching(
             edited_u8, composite, mask_source, mask_source).astype(np.uint8)
+
+
+def optimize_iterations(step, n_inner: int, latents2, context4, sgd_state):
+    """`n_inner` iterations of one optimize step, `step(latents2, context4,
+    sgd_state) -> (latents2, context4, sgd_state, logs, taps)` (the
+    fast-start inner loop of the first optimize step, editor.py:185-276).
+    Each iteration logs the loss of its pre-update state, so with several
+    the (latents2, context4) returned are the pre-update state of the lowest
+    loss; with one, the post-update state (editor.py:274-276).  The SGD
+    state, logs and taps are the last iteration's."""
+    best = (math.inf, None, None)
+    for _ in range(n_inner):
+        before = (latents2, context4)
+        latents2, context4, sgd_state, logs, taps = step(latents2, context4, sgd_state)
+        if logs["total"] < best[0]:
+            best = (logs["total"], *before)
+    if n_inner > 1 and best[1] is not None:
+        latents2, context4 = best[1], best[2]
+    return latents2, context4, sgd_state, logs, taps
 
 
 def perform_geometric_edit(pipeline: Pipeline, image: np.ndarray, depth: np.ndarray,

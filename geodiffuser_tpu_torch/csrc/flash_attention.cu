@@ -4,7 +4,8 @@
 // (_fwd_kernel) and _flash_bwd_impl (_bwd_dq_kernel, _bwd_dkv_kernel).
 //
 // What bounds it on the H100: at the main path's shapes (Lq = Lk = 4096,
-// D = 40; Lq = Lk = 1024, D = 80; the warped-row blend's 1024 x 4096, D = 40)
+// D = 40; Lq = Lk = 1024, D = 80; the warped-row blend's 1024 x 4096, D = 40;
+// at 1024^2 images also Lq = Lk = 16384, D = 40 and Lq = Lk = 1024, D = 160)
 // the work is 4*Lq*Lk*D operations per (batch*head) against
 // 2*(Lq + 2*Lk)*D bytes in bf16, about 1000 operations per byte: far above
 // the ~295 at which the card stops being memory bound, so the tensor-core
@@ -21,7 +22,8 @@
 // operands in shared memory, then P V with P rounded to bf16 in registers
 // and V read row-major through wgmma's transpose bit (no transposed copy).
 // D = 40 is padded to a k-depth of 48 for Q K^T by TMA's zero fill and runs
-// P V at its native width of 40 (m64n40k16); D = 80 runs both at 80.  At
+// P V at its native width of 40 (m64n40k16); D = 80 and D = 160 run both at
+// their width (D = 160: three boxes a tile, the last one half zero).  At
 // these widths each 64-key tile carries little work for the bytes it
 // brings from L2, so the ring's traffic bounds the kernel before the tensor
 // cores do: every loaded tile feeds as many 64-row q tiles as the block's
@@ -30,12 +32,15 @@
 // The backward is a dq kernel per q tile, which also computes delta =
 // rowsum(dO o O) for its rows and writes it, and a dk/dv kernel per key tile
 // that reads it, launched after it on the same stream: no atomics,
-// deterministic.  Probabilities and dS are rounded to bf16 before their
+// deterministic.  At D = 160 one thread cannot hold both 64 x 160 float32
+// accumulators of dK and dV (160 registers before any operand), so the
+// dk/dv kernel's two warpgroups share one key tile, one accumulating dV and
+// the other dK, and each computes S^T itself.  Probabilities and dS are rounded to bf16 before their
 // products, as the Pallas kernels cast them; the LSE is float32, natural log.
 //
 // float32 inputs run the CUDA-core kernels below (float32 FMAs, 67 TFLOP/s
-// peak) and serve only float32 checks.  D is at most 80: flash runs on
-// self-attention at 32^2 and 64^2 only.  The bf16 kernels need D to be a
+// peak) and serve only float32 checks.  D is at most 160, the UNet's widest
+// head (its 32^2 level at 1024^2 images).  The bf16 kernels need D to be a
 // multiple of 8 (16-byte TMA rows); the wrapper pads other widths.
 #include "hopper.cuh"
 
@@ -265,7 +270,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 // ------------------------------------------------------ bf16: TMA + wgmma
 // One block = NC consumer warpgroups (wgmma) + one producer warp (TMA):
-// NC = 4 in the forward at D <= 40; 2 at D = 80 and in the backward
+// NC = 4 in the forward at D <= 40; 2 at D = 80 and 160 and in the backward
 // kernels, whose accumulators take more registers (fwd_nc, BWD_NC).  Every operand tile is 64 rows of the (B, L, D)
 // tensor, loaded by TMA as ceil(D/64) boxes of 64 columns x 64 rows with the
 // 128-byte swizzle; TMA zero-fills columns >= D (the padding of the
@@ -657,7 +662,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constan
 // P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta), both rounded to bf16
 // in registers, then dV += P^T dO and dK += dS^T Q with dO and Q read
 // row-major.  The producer warp brings each q tile's LSE and delta (written
-// by the dq kernel) into the stage beside its Q and dO tiles.
+// by the dq kernel) into the stage beside its Q and dO tiles.  At DV > 128
+// (SPLIT) the block has one row tile: warpgroup 0 runs S^T and dV, warpgroup
+// 1 runs S^T, dP^T and dK, each over every q tile.
 template <int DV, int NC>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
 flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
@@ -667,17 +674,20 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_consta
                            int Lk, int D, float scale, int rows) {
   using T = Tiles<DV>;
   constexpr int TB = T::TB, ST = T::STAGES;
+  constexpr bool SPLIT = DV > 128;
   // a stage's barriers advance one phase per use; each use must be waited
   // on by the same warpgroups, so the splits (<= NC) must divide the ring
   static_assert(ST % NC == 0, "ring depth must be a multiple of the warpgroups");
+  static_assert(!SPLIT || NC == 2, "the split kernel pairs a dK and a dV warpgroup");
   extern __shared__ uint8_t smem_raw[];
   const Smem<DV> sm(smem_raw, 2 * NC);   // K tiles, then V tiles
   float* sstat = sm.stat;                 // [ST][lse * log2(e), delta][64]
-  const int S = NC / rows;
+  const int S = SPLIT ? 1 : NC / rows;
   const int b = blockIdx.y, k0 = blockIdx.x * rows * TILE;
   const int nt = (Lq + TILE - 1) / TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) sm.init(32, rows);
+  // every stage is read by one warpgroup of each row tile, or by both (SPLIT)
+  if (threadIdx.x == 0) sm.init(32, SPLIT ? NC : rows);
   __syncthreads();
 
   if (warp == NC * 4) {  // producer warp: lane 0 issues the TMA loads, all lanes the statistics
@@ -704,32 +714,13 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_consta
     return;
   }
 
-  const int wg = warp >> 2, rt = wg / S, sp = wg % S;
+  const int wg = warp >> 2, rt = SPLIT ? 0 : wg / S, sp = SPLIT ? 0 : wg % S;
   const int t = threadIdx.x & 127, w16 = (t >> 5) * 16, g = lane >> 2, tig = lane & 3;
   const uint32_t kt = sm.own + rt * TB, vt = sm.own + (NC + rt) * TB;
   const int row0 = k0 + rt * TILE;
   const float scale_log2 = scale * LOG2E;
-  float acc_k[T::NACC], acc_v[T::NACC], sacc[32], pacc[32];
-#pragma unroll
-  for (int i = 0; i < T::NACC; ++i) acc_k[i] = acc_v[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
-  mbar_wait_warp(sm.once, 0);
-
-  for (int j = sp; j < nt; j += S) {
-    const int s = j % ST;
-    const uint32_t qt = sm.stage(s), ot = qt + TB;
-    const float* st = sstat + s * 128;
-    mbar_wait_warp(sm.full(s), (j / ST) & 1);
-    pin(sacc);
-    pin(pacc);
-    wg_fence();
-    mma_abt<DV>(sacc, kt, qt);   // S^T: key rows, q columns
-    wg_commit();
-    mma_abt<DV>(pacc, vt, ot);   // dP^T
-    wg_commit();
-    wg_wait1();   // S^T is done; P^T and dV run while dP^T does
-    pin(sacc);
+  // P^T = exp(S^T - lse) of q tile j in place of S^T, 0 at queries >= Lq
+  auto probs_t = [&](float (&s)[32], const float* st, int j) {
     const bool ragged = (j + 1) * TILE > Lq;
 #pragma unroll
     for (int jn = 0; jn < 8; ++jn) {
@@ -738,50 +729,129 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_consta
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = !ragged || j * TILE + c + (e & 1) < Lq;
-        sacc[4 * jn + e] =
-            ok ? ex2(fmaf(sacc[4 * jn + e], scale_log2, -((e & 1) ? l2.y : l2.x))) : 0.f;
+        s[4 * jn + e] = ok ? ex2(fmaf(s[4 * jn + e], scale_log2, -((e & 1) ? l2.y : l2.x))) : 0.f;
       }
     }
-    uint32_t pa[4][4], da[4][4];
-    pack_a(pa, sacc);
-    pin(acc_v);
-    pin(pa);
-    wg_fence();
-    mma_rows<DV>(acc_v, pa, ot);
-    wg_commit();
-    wg_wait1();   // dP^T is done; dS^T and dK run while dV does
-    pin(pacc);
+  };
+  // dS^T = P^T (dP^T - delta) in place of dP^T
+  auto grad_t = [&](float (&dp)[32], const float (&p)[32], const float* st) {
 #pragma unroll
     for (int jn = 0; jn < 8; ++jn) {
       const float2 dd = *reinterpret_cast<const float2*>(st + 64 + jn * 8 + tig * 2);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        pacc[4 * jn + e] = sacc[4 * jn + e] * (pacc[4 * jn + e] - ((e & 1) ? dd.y : dd.x));
+        dp[4 * jn + e] = p[4 * jn + e] * (dp[4 * jn + e] - ((e & 1) ? dd.y : dd.x));
     }
-    pack_a(da, pacc);
-    pin(acc_k);
-    pin(da);
-    wg_fence();
-    mma_rows<DV>(acc_k, da, qt);
-    wg_commit();
-    wg_wait0();
-    pin(acc_k);
-    pin(acc_v);
-    pin(pa);
-    pin(da);
-    mbar_arrive(sm.empty(s));
-  }
-  if (S > 1) {
-    float both[2 * T::NACC];
+  };
+
+  if constexpr (SPLIT) {
+    const bool is_k = wg == 1;
+    float acc[T::NACC], sacc[32], pacc[32];
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) both[i] = acc_k[i], both[T::NACC + i] = acc_v[i];
-    if (!merge_sum<2 * T::NACC>(reinterpret_cast<float*>(sm.base), both, rt, sp, S, t, NC * 128))
-      return;
+    for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) acc_k[i] = both[i], acc_v[i] = both[T::NACC + i];
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    mbar_wait_warp(sm.once, 0);
+    for (int j = 0; j < nt; ++j) {
+      const int s = j % ST;
+      const uint32_t qt = sm.stage(s), ot = qt + TB;
+      const float* st = sstat + s * 128;
+      mbar_wait_warp(sm.full(s), (j / ST) & 1);
+      pin(sacc);
+      pin(pacc);
+      wg_fence();
+      mma_abt<DV>(sacc, kt, qt);     // S^T: key rows, q columns
+      wg_commit();
+      if (is_k) {
+        mma_abt<DV>(pacc, vt, ot);   // dP^T
+        wg_commit();
+        wg_wait1();                  // S^T is done; P^T is formed while dP^T runs
+      } else {
+        wg_wait0();
+      }
+      pin(sacc);
+      probs_t(sacc, st, j);
+      uint32_t pa[4][4];
+      if (is_k) {
+        wg_wait0();
+        pin(pacc);
+        grad_t(pacc, sacc, st);
+        pack_a(pa, pacc);
+      } else {
+        pack_a(pa, sacc);
+      }
+      pin(acc);
+      pin(pa);
+      wg_fence();
+      mma_rows<DV>(acc, pa, is_k ? qt : ot);   // dK += dS^T Q, or dV += P^T dO
+      wg_commit();
+      wg_wait0();
+      pin(acc);
+      pin(pa);
+      mbar_arrive(sm.empty(s));
+    }
+    if (is_k)
+      store_rows<DV>(dk + (size_t)b * Lk * D, acc, row0, Lk, D, scale, scale, w16, g, tig);
+    else
+      store_rows<DV>(dv + (size_t)b * Lk * D, acc, row0, Lk, D, 1.f, 1.f, w16, g, tig);
+  } else {
+    float acc_k[T::NACC], acc_v[T::NACC], sacc[32], pacc[32];
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    mbar_wait_warp(sm.once, 0);
+
+    for (int j = sp; j < nt; j += S) {
+      const int s = j % ST;
+      const uint32_t qt = sm.stage(s), ot = qt + TB;
+      const float* st = sstat + s * 128;
+      mbar_wait_warp(sm.full(s), (j / ST) & 1);
+      pin(sacc);
+      pin(pacc);
+      wg_fence();
+      mma_abt<DV>(sacc, kt, qt);   // S^T: key rows, q columns
+      wg_commit();
+      mma_abt<DV>(pacc, vt, ot);   // dP^T
+      wg_commit();
+      wg_wait1();   // S^T is done; P^T and dV run while dP^T does
+      pin(sacc);
+      probs_t(sacc, st, j);
+      uint32_t pa[4][4], da[4][4];
+      pack_a(pa, sacc);
+      pin(acc_v);
+      pin(pa);
+      wg_fence();
+      mma_rows<DV>(acc_v, pa, ot);
+      wg_commit();
+      wg_wait1();   // dP^T is done; dS^T and dK run while dV does
+      pin(pacc);
+      grad_t(pacc, sacc, st);
+      pack_a(da, pacc);
+      pin(acc_k);
+      pin(da);
+      wg_fence();
+      mma_rows<DV>(acc_k, da, qt);
+      wg_commit();
+      wg_wait0();
+      pin(acc_k);
+      pin(acc_v);
+      pin(pa);
+      pin(da);
+      mbar_arrive(sm.empty(s));
+    }
+    if (S > 1) {
+      float both[2 * T::NACC];
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) both[i] = acc_k[i], both[T::NACC + i] = acc_v[i];
+      if (!merge_sum<2 * T::NACC>(reinterpret_cast<float*>(sm.base), both, rt, sp, S, t, NC * 128))
+        return;
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) acc_k[i] = both[i], acc_v[i] = both[T::NACC + i];
+    }
+    store_rows<DV>(dk + (size_t)b * Lk * D, acc_k, row0, Lk, D, scale, scale, w16, g, tig);
+    store_rows<DV>(dv + (size_t)b * Lk * D, acc_v, row0, Lk, D, 1.f, 1.f, w16, g, tig);
   }
-  store_rows<DV>(dk + (size_t)b * Lk * D, acc_k, row0, Lk, D, scale, scale, w16, g, tig);
-  store_rows<DV>(dv + (size_t)b * Lk * D, acc_v, row0, Lk, D, 1.f, 1.f, w16, g, tig);
 }
 
 // ------------------------------------------------------------ host side
@@ -795,8 +865,8 @@ constexpr size_t smem_bytes(int own, int stat_floats) {
 }
 
 // consumer warpgroups of a block: four in the forward at D <= 40; two at
-// D = 80, whose accumulators would not fit four warpgroups' registers
-// without spilling, and in the backward kernels
+// D = 80 and 160, whose accumulators would not fit four warpgroups'
+// registers without spilling, and in the backward kernels
 template <int DV>
 constexpr int fwd_nc() { return DV > 64 ? 2 : 4; }
 constexpr int BWD_NC = 2;
@@ -826,7 +896,9 @@ cudaError_t bwd_wgmma_launch(const void* q, const void* k, const void* v, const 
                              int rows_k, cudaStream_t s) {
   using bf = __nv_bfloat16;
   CUtensorMap tq, tk, tv, tdo;
+  // at DV > 128 the dk/dv kernel's two warpgroups share one row tile
   if (rows_q < 1 || rows_k < 1 || BWD_NC % rows_q != 0 || BWD_NC % rows_k != 0 ||
+      (DV > 128 && rows_k != 1) ||
       !tensor_map(&tq, q, B, Lq, D) || !tensor_map(&tk, k, B, Lk, D) ||
       !tensor_map(&tv, v, B, Lk, D) || !tensor_map(&tdo, dout, B, Lq, D))
     return cudaErrorInvalidValue;
@@ -890,21 +962,24 @@ cudaError_t bwd_launch(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // bf16 (dtype 1) runs the TMA + wgmma kernels with the row tiles per block
-// chosen by the wrapper (fwd, dq: over the queries; dk/dv: over the keys);
-// float32 (dtype 0) the CUDA-core kernels, with D/4 rounded up to 10 or 20 columns per
-// thread.  The main path has D 40 and 80 only; D > 80 is refused.
+// chosen by the wrapper (fwd, dq: over the queries; dk/dv: over the keys)
+// at a padded width of 40, 80 or 160; float32 (dtype 0) the CUDA-core
+// kernels, with D/4 rounded up to 10, 20 or 40 columns per thread.  The
+// paths have D 40, 80 and 160 (the UNet's head widths); D > 160 is refused.
 extern "C" int gd_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                             int B, int Lq, int Lk, int D, float scale, int dtype, int rows,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D < 1 || D > 80) return cudaErrorInvalidValue;
+  if (D < 1 || D > 160) return cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D <= 40) return fwd_wgmma_launch<40>(q, k, v, o, lse, B, Lq, Lk, D, scale, rows, st);
-    return fwd_wgmma_launch<80>(q, k, v, o, lse, B, Lq, Lk, D, scale, rows, st);
+    if (D <= 80) return fwd_wgmma_launch<80>(q, k, v, o, lse, B, Lq, Lk, D, scale, rows, st);
+    return fwd_wgmma_launch<160>(q, k, v, o, lse, B, Lq, Lk, D, scale, rows, st);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   if (D <= 40) return fwd_launch<float, 10>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
-  return fwd_launch<float, 20>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
+  if (D <= 80) return fwd_launch<float, 20>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
+  return fwd_launch<float, 40>(q, k, v, o, lse, B, Lq, Lk, D, scale, st);
 }
 
 extern "C" int gd_flash_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -912,16 +987,21 @@ extern "C" int gd_flash_bwd(const void* q, const void* k, const void* v, const v
                             void* dv, int B, int Lq, int Lk, int D, float scale, int dtype,
                             int rows_q, int rows_k, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D < 1 || D > 80) return cudaErrorInvalidValue;
+  if (D < 1 || D > 160) return cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D <= 40)
       return bwd_wgmma_launch<40>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale,
                                   rows_q, rows_k, st);
-    return bwd_wgmma_launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale,
-                                rows_q, rows_k, st);
+    if (D <= 80)
+      return bwd_wgmma_launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale,
+                                  rows_q, rows_k, st);
+    return bwd_wgmma_launch<160>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale,
+                                 rows_q, rows_k, st);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   if (D <= 40)
     return bwd_launch<float, 10>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale, st);
-  return bwd_launch<float, 20>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale, st);
+  if (D <= 80)
+    return bwd_launch<float, 20>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale, st);
+  return bwd_launch<float, 40>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, D, scale, st);
 }

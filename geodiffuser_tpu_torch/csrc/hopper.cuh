@@ -13,15 +13,16 @@ namespace gd {
 
 constexpr int BOX = 64 * 128;        // bytes of one 64 x 64 bf16 TMA box
 
-template <int DV>  // padded head width: 40 (D <= 40) or 80 (D <= 80)
+template <int DV>  // padded head width: 40 (D <= 40), 80 (D <= 80) or 160 (D <= 160)
 struct Tiles {
-  static constexpr int CB = DV > 64 ? 2 : 1;       // 64-column boxes per tile
+  static constexpr int CB = (DV + 63) / 64;        // 64-column boxes per tile
   static constexpr int TB = CB * BOX;              // bytes of one 64-row tile
   static constexpr int KS = (DV + 15) / 16;        // k16 steps over the head dim
   static constexpr int NACC = DV / 2;              // fp32 accumulators / thread (64 x DV)
   // ring depth: a block's loads in flight, its bandwidth from L2 being
-  // about STAGES tiles per load latency
-  static constexpr int STAGES = DV > 64 ? 4 : 8;
+  // about STAGES tiles per load latency; at DV = 160 (three boxes a tile)
+  // two stages are what shared memory holds beside a block's own tiles
+  static constexpr int STAGES = DV > 128 ? 2 : DV > 64 ? 4 : 8;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -165,6 +166,21 @@ __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
       "%38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
       : GD_F8(0), GD_F8(8), GD_F8(16), GD_F8(24), GD_F8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : GD_F8(0), GD_F8(8), GD_F8(16), GD_F8(24), GD_F8(32), GD_F8(40), GD_F8(48), GD_F8(56),
+        GD_F8(64), GD_F8(72)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 // d (64 x 64) += A (64 x 16, registers) B^T (64 x 16, smem, K-major): the

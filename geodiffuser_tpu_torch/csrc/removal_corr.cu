@@ -468,8 +468,12 @@ cudaError_t corr_bwd(const void* qe, const void* ke, const void* kb, const void*
 
 // ------------------------------------------------------ bf16: TMA + wgmma
 
-constexpr int MAXCH = 64;        // 64-row chunks of edit rows a budget may have (K <= 4096)
 constexpr int CH = 4;            // live chunks per pass of the correlation kernel
+
+// 64-row chunks of a budget of K edit rows; a kernel's list of its live
+// chunks holds that many entries and the count after them
+__host__ __device__ constexpr int chunks_of(int K) { return (K + 63) / 64; }
+inline size_t chunk_list_bytes(int K) { return sizeof(int) * (chunks_of(K) + 1); }
 
 enum SweepMode { BASE_LSE = 0, EDIT_LSE = 1, EDIT_P = 2 };
 
@@ -512,6 +516,16 @@ inline size_t ring_smem(size_t own, size_t stage_bytes, int stages, size_t extra
   return 1024 + own + stages * stage_bytes + 16 * stages + 8 + extra;
 }
 
+// prepare() for a kernel whose shared memory grows with its input (the
+// chunk list): raised to the largest size launched so far, never lowered
+template <typename Kernel>
+cudaError_t prepare_at_least(Kernel k, size_t bytes, size_t& prepared) {
+  if (bytes <= prepared) return cudaSuccess;
+  const cudaError_t e = prepare(k, bytes);
+  if (e == cudaSuccess) prepared = bytes;
+  return e;
+}
+
 // Whether any of row_mask[lo, hi) is live; a barrier of the whole block.
 __device__ __forceinline__ bool any_live(const float* row_mask, int lo, int hi) {
   bool live = false;
@@ -520,7 +534,7 @@ __device__ __forceinline__ bool any_live(const float* row_mask, int lo, int hi) 
 }
 
 // The 64-row chunks of row_mask (K rows) that hold a live row, in order:
-// list[0..n), n in list[MAXCH].  Warp 0 writes; the caller syncs.
+// list[0..n), n in list[chunks_of(K)].  Warp 0 writes; the caller syncs.
 __device__ __forceinline__ void live_chunks(const float* row_mask, int K, int* list) {
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;
@@ -533,7 +547,7 @@ __device__ __forceinline__ void live_chunks(const float* row_mask, int K, int* l
       ++n;
     }
   }
-  if (lane == 0) list[MAXCH] = n;
+  if (lane == 0) list[chunks_of(K)] = n;
 }
 
 // bf16 pairs of a 64 x 64 accumulator as A fragments (pack_a), split into
@@ -842,7 +856,7 @@ corr_wgmma_kernel(__grid_constant__ const CUtensorMap tqb, __grid_constant__ con
   if (threadIdx.x == 0) rg.init(1, 128 * NC);
   live_chunks(row_mask, K, list);
   __syncthreads();
-  const int nlive = list[MAXCH];
+  const int nlive = list[chunks_of(K)];
   if (nlive == 0) return;
   const int passes = (nlive + CH - 1) / CH;
 
@@ -1143,7 +1157,7 @@ bwd_keys_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
   if (threadIdx.x == 0) rg.init(32, 128);
   live_chunks(row_mask, K, list);
   __syncthreads();
-  const int nlive = list[MAXCH];
+  const int nlive = list[chunks_of(K)];
 
   if (warp == 4) {  // producer warp: lane 0 issues the TMA loads, all lanes the scalars
     if (lane == 0 && nlive > 0) {
@@ -1250,9 +1264,10 @@ cudaError_t corr_launch(const CUtensorMap& tqb, const CUtensorMap& tkb, const CU
                         const float* row_mask, unsigned long long* keys, int H, int K, int L,
                         int Lk, float scale_log2, cudaStream_t s) {
   const size_t smem = ring_smem(NC * Tiles<DV>::TB, Tiles<DV>::TB + CH * BOX, CorrStages<DV, NC>::value,
-                                CH * 128 * 8 + (MAXCH + 1) * 4);
+                                CH * 128 * 8 + chunk_list_bytes(K));
   auto kern = corr_wgmma_kernel<DV, NC>;
-  static const cudaError_t e = prepare(kern, smem);
+  static size_t prepared = 0;
+  const cudaError_t e = prepare_at_least(kern, smem, prepared);
   if (e != cudaSuccess) return e;
   kern<<<dim3((L + NC * TILE - 1) / (NC * TILE), H), (NC + 1) * 128, smem, s>>>(
       tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, K, L, Lk, scale_log2);
@@ -1267,7 +1282,7 @@ cudaError_t corr_fwd_bf16(const void* qe, const void* ke, const void* qb, const 
                           int K, int L, int Lk, int D, int Lk_pad, int splits, int nc, float scale,
                           cudaStream_t s) {
   CUtensorMap tqe, tke, tqb, tkb, tpe;
-  if (K > MAXCH * TILE || (nc != 1 && nc != 2) || !tensor_map(&tqe, qe, H, K, D) ||
+  if ((nc != 1 && nc != 2) || !tensor_map(&tqe, qe, H, K, D) ||
       !tensor_map(&tke, ke, H, Lk, D) || !tensor_map(&tqb, qb, H, L, D) ||
       !tensor_map(&tkb, kb, H, Lk, D) || !tensor_map(&tpe, pe, H, K, Lk_pad))
     return cudaErrorInvalidValue;
@@ -1301,7 +1316,7 @@ cudaError_t corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const 
                           int splits, float scale, cudaStream_t s) {
   using T = Tiles<DV>;
   CUtensorMap tqe, tqin, tqbg, tke, tkb;
-  if (K > MAXCH * TILE || !tensor_map(&tqe, qe, H, K, D) || !tensor_map(&tqin, q_in, H, K, D) ||
+  if (!tensor_map(&tqe, qe, H, K, D) || !tensor_map(&tqin, q_in, H, K, D) ||
       !tensor_map(&tqbg, q_bg, H, K, D) || !tensor_map(&tke, ke, H, Lk, D) ||
       !tensor_map(&tkb, kb, H, Lk, D))
     return cudaErrorInvalidValue;
@@ -1319,9 +1334,11 @@ cudaError_t corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const 
                                                            dqe, H, K, D, splits, scale);
   if ((e = cudaGetLastError()) != cudaSuccess || dke == nullptr) return e;
   constexpr int KST = KeysStages<DV>::value;
-  const size_t smem_k = ring_smem(2 * T::TB, 3 * T::TB, KST, KST * TILE * sizeof(BwdRow) + (MAXCH + 1) * 4);
+  const size_t smem_k =
+      ring_smem(2 * T::TB, 3 * T::TB, KST, KST * TILE * sizeof(BwdRow) + chunk_list_bytes(K));
   auto kk = bwd_keys_kernel<DV>;
-  static const cudaError_t e_k = prepare(kk, smem_k);
+  static size_t prepared_k = 0;
+  const cudaError_t e_k = prepare_at_least(kk, smem_k, prepared_k);
   if (e_k != cudaSuccess) return e_k;
   kk<<<dim3((Lk + TILE - 1) / TILE, H), 160, smem_k, s>>>(tqe, tqin, tqbg, tke, tkb, row_mask, lse_e,
                                                          lse_in, lse_bg, g_in, g_bg, c_rows, dke, K,
@@ -1331,7 +1348,8 @@ cudaError_t corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const 
 
 // float32 only (bf16 runs the wgmma kernels below), with the head-dim
 // columns each thread owns (D/4 rounded up to 10 or 20).  The loss runs at
-// 32^2 and 64^2 only (D 80 and 40); D > 80 is refused.
+// the two largest UNet levels only (D 40 and 80 at every image size); D > 80
+// is refused.
 #define GD_DISPATCH_F32(DTYPE, D, FN, ...)                                       \
   do {                                                                           \
     if ((D) < 1 || (D) > 80 || (DTYPE) != 0) return cudaErrorInvalidValue;      \
@@ -1361,7 +1379,8 @@ extern "C" int gd_corr_bwd(const void* qe, const void* ke, const void* kb, const
               H, K, Lk, D, scale, (cudaStream_t)stream);
 }
 
-// bf16: D a multiple of 8 up to 80 (the wrapper pads), K up to 4096 rows.
+// bf16: D a multiple of 8 up to 80 (the wrapper pads: the loss layers are
+// the two largest UNet levels, D 40 and 80 at every image size), any K.
 extern "C" int gd_corr_fwd_bf16(const void* qe, const void* ke, const void* qb, const void* kb,
                                 void* pe, void* part, void* keys, const float* inpaint,
                                 const float* background, const float* row_mask, float* lse_e,

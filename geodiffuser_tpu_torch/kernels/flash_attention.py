@@ -81,9 +81,12 @@ def _tiles(n: int, rows: int) -> int:
 
 
 # consumer warpgroups of a block: the forward at D <= 40 takes four; at
-# D = 80 (twice the output accumulators) and in the backward kernels two
-FWD_WARPGROUPS = {40: 4, 80: 2}
+# D = 80 and 160 (two and four times the output accumulators) and in the
+# backward kernels two
+FWD_WARPGROUPS = {40: 4, 80: 2, 160: 2}
 BWD_WARPGROUPS = 2
+# widest head the kernels take: the UNet's 32^2 level at 1024^2 images
+MAX_D = 160
 
 
 def row_tiles(b: int, rows: int, warpgroups: int) -> int:
@@ -106,9 +109,12 @@ def tile_plan(b: int, lq: int, lk: int, d: int) -> dict:
     the padded head width (the kernel variant), the TMA map of each operand
     (dims and byte strides innermost first, 64 x 64 boxes) and, per kernel,
     its grid, rows per block and the loop tiles each warpgroup of a row tile
-    takes.  Cached: callers read the returned dict and do not modify it."""
+    takes.  At variant 160 the dk/dv kernel has one row tile whose two
+    warpgroups take every loop tile, one accumulating dV and the other dK
+    (`roles`): a thread cannot hold both 64 x 160 accumulators.  Cached:
+    callers read the returned dict and do not modify it."""
     d8 = -(-d // 8) * 8
-    dv = 40 if d8 <= 40 else 80
+    dv = 40 if d8 <= 40 else 80 if d8 <= 80 else 160
 
     def kernel(rows, loop, warpgroups):
         r = row_tiles(b, rows, warpgroups)
@@ -122,9 +128,10 @@ def tile_plan(b: int, lq: int, lk: int, d: int) -> dict:
         return dict(dims=(d8, length, b), strides=(2 * d8, 2 * d8 * length),
                     box=(BOX_COLS, TILE, 1), boxes_per_tile=_tiles(d8, BOX_COLS))
 
+    dkv = (kernel(lk, lq, BWD_WARPGROUPS) if dv < 160
+           else dict(kernel(lk, lq, 1), warpgroups=BWD_WARPGROUPS, roles=("dv", "dk")))
     return dict(d_pad=d8, variant=dv, k_depth=-(-dv // 16) * 16, maps=dict(q=tmap(lq), k=tmap(lk)),
-                fwd=kernel(lq, lk, FWD_WARPGROUPS[dv]), dq=kernel(lq, lk, BWD_WARPGROUPS),
-                dkv=kernel(lk, lq, BWD_WARPGROUPS))
+                fwd=kernel(lq, lk, FWD_WARPGROUPS[dv]), dq=kernel(lq, lk, BWD_WARPGROUPS), dkv=dkv)
 
 
 def _tma_ready(x, d8: int):
@@ -157,8 +164,8 @@ def _check(q, k, v):
         raise TypeError("q, k, v must share one dtype")
     if q.dim() != 3 or k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    if not 1 <= q.shape[2] <= 80:
-        raise ValueError(f"head dim {q.shape[2]} outside 1..80")
+    if not 1 <= q.shape[2] <= MAX_D:
+        raise ValueError(f"head dim {q.shape[2]} outside 1..{MAX_D}")
 
 
 def flash_fwd_cuda(q, k, v, scale: float):

@@ -143,7 +143,8 @@ def _check(qe, ke, qb, kb):
             or ke.shape[2] != d or qb.shape[2] != d:
         raise ValueError("bad shapes: qe (H,K,D), ke/kb (H,Lk,D), qb (H,L,D)")
     if not 1 <= d <= 80:
-        raise ValueError(f"head dim {d} outside 1..80")
+        raise ValueError(f"head dim {d} outside 1..80: the removal loss runs at the two largest "
+                         "UNet levels only, whose heads are 40 and 80 wide at every image size")
 
 
 def corr_fwd_cuda(qe, ke, qb, kb, inpaint, background, row_mask, scale):
@@ -176,7 +177,7 @@ def corr_fwd_cuda(qe, ke, qb, kb, inpaint, background, row_mask, scale):
             part.data_ptr(), keys.data_ptr(), *(m.data_ptr() for m in masks), *outs,
             h, k_rows, l, lk, plan["d_pad"], plan["lk_pad"], plan["splits"],
             plan["warpgroups"], float(scale), _build.stream_ptr(qe))
-        _build.check(err, "gd_corr_fwd_bf16 (takes up to 4096 edit rows)")
+        _build.check(err, "gd_corr_fwd_bf16")
     else:
         spans = lib.gd_corr_spans(l)
         part_val = torch.empty((h, k_rows, spans, 2), **f32)
@@ -228,7 +229,7 @@ def corr_bwd_cuda(qe, ke, qb, kb, j_in, j_bg, g_in, g_bg, row_mask, lse_e, lse_b
             b_part.data_ptr(), c_rows.data_ptr(), d_qe.data_ptr(),
             None if d_ke is None else d_ke.data_ptr(),
             h, k_rows, lk, d8, splits, float(scale), _build.stream_ptr(qe))
-        _build.check(err, "gd_corr_bwd_bf16 (takes up to 4096 edit rows)")
+        _build.check(err, "gd_corr_bwd_bf16")
         d_qe = _unpad(d_qe, d)
         d_ke = None if d_ke is None else _unpad(d_ke, d)
     else:

@@ -48,12 +48,37 @@ def _out_size(src, out_hw) -> Tuple[int, int]:
     return tuple(out_hw) if out_hw is not None else (h, w)
 
 
+def _cell_sums(idx: torch.Tensor, vals: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """Sums of the rows of vals (N, K) by cell idx (N,) -> (n_cells, K), in
+    an order fixed by the inputs alone: the rows sorted by cell (ties in row
+    order), then each cell's run summed as a binary tree over its ranks.
+    Elementwise adds only, so two calls give equal bits on either device
+    (`index_add_` sums by atomics on the card, in an order that varies)."""
+    key, order = torch.sort(idx, stable=True)
+    val = vals[order]
+    n = key.numel()
+    pos = torch.arange(n, device=idx.device)
+    rank = pos - torch.searchsorted(key, key)   # place in the cell's run
+    longest = int(rank.max()) + 1 if n else 0
+    step = 1
+    while step < longest:   # rank r adds rank r + step's subtree where r % 2 step == 0
+        partner = torch.clamp(pos + step, max=n - 1)
+        take = (rank % (2 * step) == 0) & (pos + step < n) & (key[partner] == key)
+        val = torch.where(take[:, None], val + val[partner], val)
+        step *= 2
+    out = torch.zeros((n_cells, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    head = rank == 0
+    out[key[head]] = val[head]
+    return out
+
+
 def splat_fused_plain(src: torch.Tensor, coords: torch.Tensor, radius: float = 1.3,
                       tau: float = 1.0, z_beta: float = 20.0,
                       out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain version by scatter ops: the corners' logits, a scatter-max per
-    cell, then scatter-adds of exp(l - max) * v, exp(l - max) and the log-miss
-    term.  src (H, W, C), coords (H, W, 3) NDC + z -> (H_out, W_out, C)."""
+    cell, then per-cell sums (`_cell_sums`, a fixed order) of exp(l - max) *
+    v, exp(l - max) and the log-miss term.  src (H, W, C), coords (H, W, 3)
+    NDC + z -> (H_out, W_out, C)."""
     h, w, c = src.shape
     oh, ow = _out_size(src, out_hw)
     n_out = oh * ow
@@ -87,8 +112,8 @@ def splat_fused_plain(src: torch.Tensor, coords: torch.Tensor, radius: float = 1
     e = torch.exp(lg - m[idx])
     v = src.reshape(h * w, c).float().repeat(4, 1)
     miss = torch.log1p(-torch.clamp(a, 0.0, MISS_CLIP))
-    acc = torch.zeros((n_out + 1, c + 2), **f32)
-    acc.index_add_(0, idx, torch.cat([e[:, None] * v, e[:, None], miss[:, None]], dim=-1))
+    acc = _cell_sums(idx, torch.cat([e[:, None] * v, e[:, None], miss[:, None]], dim=-1),
+                     n_out + 1)
     num, den, log_miss = acc[:-1, :c], acc[:-1, c:c + 1], acc[:-1, c + 1:]
     out = num / torch.clamp(den, min=1e-30) * (1.0 - torch.exp(log_miss))
     return torch.where(den > 0.0, out, 0.0).reshape(oh, ow, c)

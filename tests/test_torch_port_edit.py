@@ -22,7 +22,7 @@ from geodiffuser_tpu.core.editor import EditSession as JEditSession
 from geodiffuser_tpu.core.pipeline import Pipeline as JPipeline
 from geodiffuser_tpu.ops import camera as jcam
 from geodiffuser_tpu_torch.config import EditConfig, ModelConfig
-from geodiffuser_tpu_torch.core import edit_state, optimization
+from geodiffuser_tpu_torch.core import edit_state, editor, optimization
 from geodiffuser_tpu_torch.core.editor import EditSession
 from geodiffuser_tpu_torch.core.pipeline import Pipeline
 from geodiffuser_tpu_torch.models.weights import from_jax_params
@@ -148,6 +148,62 @@ def test_step_functions_match(pipes, sessions, scene):
     ct = ts._cfg_step(ot[0], ot[1], 500, mt, 1, w, 1.0, 0.8, _t(pinned), False, wmt, True, False,
                       full_blend)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-4, rtol=1e-4)
+
+
+def test_fast_start_keeps_the_lowest_loss_snapshot(pipes, sessions, scene):
+    """The fast start's inner loop (`optimize_iterations`, two iterations of
+    the first optimize step) on the inputs of test_step_functions_match,
+    where base and edit streams differ: each iteration's loss against two
+    chained JAX optimize steps, and the state kept against the one the JAX
+    editor keeps (editor.py:1011-1047): the pre-update (latents, context)
+    of the iteration whose logged loss is lowest; the SGD state is the last
+    iteration's.  Tolerances of test_step_functions_match."""
+    jp, tp = pipes
+    image, depth, mask = scene
+    js, ts = sessions
+    transform = jcam.compose_transform(tx=0.05)
+    _, mj = js._preprocess(jnp.asarray(image), jnp.asarray(depth), jnp.asarray(mask),
+                           jnp.asarray(transform, jnp.float32))
+    _, mt = ts._preprocess(_t(image), _t(depth), _t(mask), _t(transform))
+    wmj = js._warp_mats(mj, np.float32(1.0), np.float32(0.8))
+    wmt = edit_state.build_warp_matrices(mt, 1.0, 0.8, 20.0)
+    rng = np.random.RandomState(2)
+    lat = rng.randn(2, SIZE // 8, SIZE // 8, 4).astype(np.float32)
+    ctx = rng.randn(4, 77, 32).astype(np.float32)
+    w = {b: dict(t) for b, t in JEditConfig().resolved_loss_weights().items()}
+    wa = {b: {k: np.float32(v) for k, v in t.items()} for b, t in w.items()}
+    lr = np.float32(1.5)
+    # the JAX editor's inner loop, step by step
+    states, totals = [(jnp.asarray(lat), jnp.asarray(ctx),
+                       jopt.init_sgd_state(jnp.asarray(lat[1]), jnp.asarray(ctx[3])))], []
+    for _ in range(2):
+        out = js._optimize_step(jp.params["unet"], *states[-1][:2], np.int32(750), mj, np.int32(0),
+                                wa, np.float32(1.0), np.float32(0.8), lr, states[-1][2], wmj,
+                                self_window=True, past_obj=False)
+        states.append(out[:3])
+        totals.append(float(np.asarray(out[3])[0]))
+    kept_j = states[int(np.argmin(totals))]
+
+    logged = []
+
+    def step(lat2, ctx4, sgd):
+        out = ts._optimize_step(lat2, ctx4, 750, mt, 0, w, 1.0, 0.8, float(lr), sgd, wmt,
+                                True, False)
+        logged.append(out[3]["total"])
+        return out
+
+    lat_t, ctx_t, sgd_t, logs_t, _ = editor.optimize_iterations(
+        step, 2, _t(lat), _t(ctx), optimization.init_sgd_state(_t(lat[1]), _t(ctx[3])))
+    np.testing.assert_allclose(logged, totals, rtol=1e-4, atol=1e-6)
+    assert logs_t["total"] == logged[-1]
+    np.testing.assert_allclose(lat_t.numpy(), np.asarray(kept_j[0]), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(ctx_t.numpy(), np.asarray(kept_j[1]), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(sgd_t.mom_latent.numpy(), np.asarray(states[-1][2].mom_latent),
+                               atol=1e-5, rtol=1e-4)
+    # one iteration keeps the post-update state
+    one = editor.optimize_iterations(step, 1, _t(lat), _t(ctx),
+                                     optimization.init_sgd_state(_t(lat[1]), _t(ctx[3])))
+    np.testing.assert_allclose(one[0].numpy(), np.asarray(states[1][0]), atol=1e-4, rtol=1e-4)
 
 
 def test_edit_slice_matches_jax(sessions, scene):

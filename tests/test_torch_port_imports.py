@@ -28,7 +28,8 @@ bad = sorted(n for n in sys.modules
 print(len(names), bad)
 assert len(names) >= 21, names
 assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.editor",
-        "geodiffuser_tpu_torch.core.edit_attention"} <= set(names), names
+        "geodiffuser_tpu_torch.core.edit_attention", "geodiffuser_tpu_torch.core.inversion",
+        "geodiffuser_tpu_torch.utils.exp_io"} <= set(names), names
 assert not bad, bad
 """
 

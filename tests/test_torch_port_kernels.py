@@ -84,10 +84,11 @@ FLASH_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-4, rtol=1e-3)
 
 
-# square maps at both head widths, and the warped-row blend's class: fewer
-# query rows than keys at D=40
+# square maps at the three head widths (D 160: the UNet's 32^2 level at
+# 1024^2 images), and the warped-row blend's class: fewer query rows than
+# keys at D=40
 @pytest.mark.parametrize("b,h,lq,lk,d", [(1, 2, 256, 256, 40), (1, 2, 256, 512, 80),
-                                         (1, 2, 256, 1024, 40)])
+                                         (1, 2, 256, 1024, 40), (1, 2, 256, 256, 160)])
 def test_flash_forward_matches_pallas(b, h, lq, lk, d):
     rng = np.random.RandomState(0)
     q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for n in (lq, lk, lk))
@@ -105,7 +106,8 @@ def test_flash_forward_matches_pallas(b, h, lq, lk, d):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0], atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("lq,lk,d", [(256, 256, 40), (256, 512, 80), (256, 1024, 40)])
+@pytest.mark.parametrize("lq,lk,d", [(256, 256, 40), (256, 512, 80), (256, 1024, 40),
+                                     (256, 256, 160)])
 def test_flash_backward_matches_pallas(lq, lk, d):
     """Gradients through the port's wrapper (autograd of the plain version)
     and its plain backward formula against the Pallas backward."""
@@ -183,18 +185,26 @@ MAIN_PATH_FLASH = [(16, 4096, 4096, 40), (8, 4096, 4096, 40), (16, 1024, 1024, 8
                    (8, 1024, 1024, 80), (8, 1024, 4096, 40), (8, 256, 1024, 80)]
 
 
+# the 1024^2 paths' shapes (128^2 at D 40, 32^2 at D 160 and its warped-row
+# map) and a width between 128 and 160
+LARGE_PATH_FLASH = [(16, 16384, 16384, 40), (8, 4096, 16384, 40), (16, 1024, 1024, 160),
+                    (8, 1024, 1024, 160), (8, 256, 1024, 160), (2, 300, 700, 136)]
+
+
 @pytest.mark.parametrize("shape", MAIN_PATH_FLASH + [(3, 200, 1100, 72),
-                                                     (1, 64, 64, 8), (2, 100, 70, 36)])
+                                                     (1, 64, 64, 8), (2, 100, 70, 36)]
+                         + LARGE_PATH_FLASH)
 def test_flash_tile_plan_covers_every_row_and_key(shape):
     """The bf16 kernels' launch plan: every row of each kernel's output axis
     lies in one block, every tile of its loop axis is taken by exactly one
     warpgroup of each row tile, the TMA maps have 16-byte rows and boxes
     that cover the padded head dim, and the wgmma depth covers it in k16
-    steps."""
+    steps.  At variant 160 the dk/dv kernel's two warpgroups share one row
+    tile and each takes every loop tile, one for dV and one for dK."""
     b, lq, lk, d = shape
     plan = fa.tile_plan(b, lq, lk, d)
     assert plan["d_pad"] % 8 == 0 and d <= plan["d_pad"] < d + 8
-    assert plan["variant"] >= plan["d_pad"] and plan["variant"] in (40, 80)
+    assert plan["variant"] >= plan["d_pad"] and plan["variant"] in (40, 80, 160)
     assert plan["k_depth"] % 16 == 0 and plan["k_depth"] - 16 < plan["variant"] <= plan["k_depth"]
     for name, length in (("q", lq), ("k", lk)):
         m = plan["maps"][name]
@@ -206,7 +216,9 @@ def test_flash_tile_plan_covers_every_row_and_key(shape):
                                   ("dkv", lk, lq, fa.BWD_WARPGROUPS)):
         k = plan[kern]
         gx, gb = k["grid"]
-        assert k["warpgroups"] == wgs and k["row_tiles"] * k["splits"] == wgs
+        roles = len(k.get("roles", ("dk and dv",)))
+        assert roles == 1 or (kern == "dkv" and plan["variant"] == 160 and k["row_tiles"] == 1)
+        assert k["warpgroups"] == wgs and k["row_tiles"] * k["splits"] * roles == wgs
         assert k["rows_per_block"] == 64 * k["row_tiles"]
         assert gb == b and gx * k["rows_per_block"] >= rows > (gx - 1) * k["rows_per_block"]
         assert k["loop_tiles"] * 64 >= loop > (k["loop_tiles"] - 1) * 64
@@ -380,8 +392,14 @@ MAIN_PATH_CORR = [(8, 1024, 4096, 4096, 40), (8, 1024, 4096, 77, 40), (8, 256, 1
                   (8, 512, 1024, 1024, 80), (8, 512, 1024, 77, 80)]
 
 
+# the 1024^2 editor's and remover's 128^2 self layers and the 768^2
+# remover's 96^2 one: budgets of 64, 128 and 72 chunks of 64 rows
+LARGE_PATH_CORR = [(8, 4096, 16384, 16384, 40), (8, 8192, 16384, 16384, 40),
+                   (8, 4608, 9216, 9216, 40)]
+
+
 @pytest.mark.parametrize("shape", MAIN_PATH_CORR + [(2, 100, 200, 77, 36), (1, 1, 64, 1, 8),
-                                                    (3, 4096, 130, 4097, 72)])
+                                                    (3, 4096, 130, 4097, 72)] + LARGE_PATH_CORR)
 def test_corr_plan_covers_every_chunk_row_and_key(shape):
     """What the wrapper hands the bf16 correlation kernels: the head dim and
     the keys padded to what TMA and wgmma take, a P_e scratch that holds
@@ -402,15 +420,41 @@ def test_corr_plan_covers_every_chunk_row_and_key(shape):
     assert plan["warpgroups"] in (1, 2)
 
 
+def test_corr_plain_past_4096_rows_matches_xla():
+    """A budget of 65 chunks of 64 rows (past the 4096 rows the kernels
+    once took), at a small H and D: the plain forward against `_corr_xla`,
+    the JAX package's formulation that the plain version follows, at
+    CORR_TOL (the two softmaxes may round a probability to neighbouring
+    bf16 values, and then an index may move on a near-tie), dead rows to
+    the sentinel."""
+    rng = np.random.RandomState(9)
+    h, k_rows, l, lk, d = 1, 4160, 128, 96, 8
+    qe, ke, qb, kb, inp, bg = _scene(rng, h, k_rows, l, lk, d)
+    live = 4100
+    row_mask = (np.arange(k_rows) < live).astype(np.float32)
+    scale = d ** -0.5
+    ref = jax.jit(jrc._corr_xla, static_argnums=6)(
+        *(jnp.asarray(x) for x in (qe, ke, qb, kb, inp, bg)), scale)
+    got = rc.removal_correlation(*(_t(x) for x in (qe, ke, qb, kb, inp, bg, row_mask)), scale)
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.numpy()[:, :live], np.asarray(r)[:, :live], **CORR_TOL)
+        assert np.all(g.numpy()[:, live:] == rc.NEG_INF)
+    for g, r in zip(got[2:], ref[2:]):
+        assert (g.numpy()[:, :live] == np.asarray(r)[:, :live]).mean() >= 0.99
+        assert np.all(g.numpy()[:, live:] == 0)
+
+
 def test_corr_plan_main_path_scratch_and_counts():
     """The P_e scratch at the 64^2 self layers (64 MiB at the editor's
-    1024-row budget, 128 MiB at the remover's 2048), the 77 text keys padded
+    1024-row budget, 128 MiB at the remover's 2048) and at the 1024^2
+    remover's 128^2 self layer (2 GiB at 8192 rows), the 77 text keys padded
     to two key tiles, the split and warpgroup choices of the 64^2 self
     layer, and the launch count per shape."""
     mib = 2 ** 20
     pe_bytes = lambda *shape: 2 * int(np.prod(rc.corr_plan(*shape)["pe_shape"]))
     assert pe_bytes(8, 1024, 4096, 4096, 40) == 64 * mib
     assert pe_bytes(8, 2048, 4096, 4096, 40) == 128 * mib
+    assert pe_bytes(8, 8192, 16384, 16384, 40) == 2048 * mib
     assert rc.corr_plan(8, 256, 1024, 77, 80)["lk_pad"] == 128
     assert rc.corr_plan(8, 2048, 4096, 4096, 40)["splits"] == 8
     assert rc.corr_plan(8, 1024, 4096, 4096, 40)["warpgroups"] == 2

@@ -115,6 +115,39 @@ def test_splat_plain_matches_pallas_many_points_per_cell(field):
     np.testing.assert_allclose(got, _pallas(src, tc, 1.3, 1.0, 1024), **SPLAT_TOL)
 
 
+def test_splat_plain_equal_bits_twice_at_eight_threads():
+    """The plain splat sums each cell in an order fixed by its inputs (a
+    binary tree over the cell's contributions sorted by point), so two calls
+    at 8 threads give equal bits, on a 256^2 field (2^18 corner terms; an
+    op of fewer than 2^15 elements runs on one thread) and with every point
+    of a 64^2 block collapsed onto one cell; the tree's sums agree with a
+    float64 sum of the same terms to float32 rounding.  The worker threads
+    first run one vectorized exp: on some hosts PyTorch's first vectorized
+    transcendental op in a new worker thread returns values off by 2^-12 in
+    that thread's chunk (exp, log, sqrt, pow alike), which is no property of
+    the splat and would otherwise decide the first call's bits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        torch.exp(torch.rand(1 << 20))
+        rng = np.random.RandomState(11)
+        for n, collapse in ((256, False), (128, True)):
+            tc = _field(rng, n, n, shift=0.05)
+            if collapse:
+                tc[40:104, 40:104, :2] = tc[30, 30, :2]
+            src, coords = _t(rng.rand(n, n, 4)), _t(tc)
+            a = ks.splat_fused_plain(src, coords, 1.3, 1.0, 20.0)
+            b = ks.splat_fused_plain(src, coords, 1.3, 1.0, 20.0)
+            assert torch.equal(a, b), n
+        idx = torch.as_tensor(rng.randint(0, 40, size=5000))
+        vals = torch.as_tensor(rng.rand(5000, 3).astype(np.float32))
+        exact = torch.zeros(41, 3, dtype=torch.float64).index_add_(0, idx, vals.double())
+        np.testing.assert_allclose(ks._cell_sums(idx, vals, 41).numpy(), exact.numpy(),
+                                   rtol=1e-5, atol=0)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_adaptive_step_stitching_matches_jax():
     """The sim-weight schedule over all three phases, with logged sim values
     behind, far ahead of and near the expected loss."""
