@@ -29,7 +29,15 @@ Phases, each of which fails the run on error:
      (--large-steps); each edit with every kernel's launch count (and
      flash's and the correlation's count per shape) set to 0 just before
      and read just after; a shape launched there but not timed in phase 2
-     fails the run;
+     fails the run; then the batch driver ("driver"): the random pipeline
+     written as an fp16 diffusers-layout checkpoint and loaded back with
+     `Pipeline.create(checkpoint_dir=...)` (bit-equal, the BPE tokenizer),
+     `run_folder_sweep(use_native=True)` over an editor, a remover and a
+     stitch folder at --steps (launch counts read as for an edit), a second
+     sweep that skips all three, a third that reads every inversion from
+     its folder, the editor folder's result against a direct
+     `EditSession.run` (equal bits), and the command line
+     `python -m geodiffuser_tpu_torch.parallel.driver` on one folder;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
 `--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
@@ -49,8 +57,11 @@ import dataclasses
 import json
 import math
 import os
+import pathlib
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -898,25 +909,32 @@ def run_path(args, pipe, path: str, go=None, steps=None):
     return launches, shapes, res
 
 
+def count_ddim_inversions(box: list):
+    """Patch `inversion.ddim_invert` to count its calls into `box`; returns
+    the function that undoes the patch."""
+    from geodiffuser_tpu_torch.core import inversion
+
+    invert = inversion.ddim_invert
+    inversion.ddim_invert = lambda *a, **kw: (box.append(1), invert(*a, **kw))[1]
+    return lambda: setattr(inversion, "ddim_invert", invert)
+
+
 def run_options(args, pipe):
     """The 512^2 editor with every run option on, twice, each run in a new
     session sharing one experiment folder: the first inverts and writes
     the inversion there, the second must read it from the disk (no DDIM
     inversion).  Returns the first run's (launches, launches by shape)."""
-    import tempfile
-
     import torch
 
     from geodiffuser_tpu_torch.config import EditConfig
-    from geodiffuser_tpu_torch.core import inversion
     from geodiffuser_tpu_torch.core.editor import EditSession
     from geodiffuser_tpu_torch.ops import camera
     from geodiffuser_tpu_torch.utils import exp_io
 
     image, depth, mask = build_scene(SIZE)
     cfg = EditConfig(**OPTIONS_CFG)
-    inverted, invert = [], inversion.ddim_invert
-    inversion.ddim_invert = lambda *a, **kw: (inverted.append(1), invert(*a, **kw))[1]
+    inverted = []
+    undo = count_ddim_inversions(inverted)
     try:
         with tempfile.TemporaryDirectory() as folder:
             runs = []
@@ -932,7 +950,7 @@ def run_options(args, pipe):
                 expect(cached and len(inverted) == 1,
                        f"options run {n}: the inversion is inverted once and read from the disk")
     finally:
-        inversion.ddim_invert = invert
+        undo()
     (l1, s1, r1), (_, _, r2) = runs
     log(f"options: loss logs {sorted(r1.loss_log)}, inversion s {r1.timings['inversion']:.3f} "
         f"then {r2.timings['inversion']:.3f} (read from the disk), final latents of the two "
@@ -1014,6 +1032,243 @@ def scene_live_rows(size: int, mode: str) -> dict:
     masks = edit_state.build_mask_sets(mask_t, tf.coords, amodal, resolutions=(ls, ls // 2),
                                        mode=mode, dilate_remover=cfg.mask_dilate_remover)
     return {r: int(masks[r].inpaint_row_mask.sum().item()) for r in (ls, ls // 2)}
+
+
+# ---------------------------------------------------------------------------
+# The batch driver
+# ---------------------------------------------------------------------------
+
+# largest uint8 difference allowed between the sweep's editor result and a
+# direct EditSession.run of the same folder (see run_driver)
+DRIVER_EDIT_LEVELS = 0
+# the words of the toy tokenizer's merges (every other word falls to bytes)
+TOY_WORDS = ("a", "photo", "of", "the", "cat", "on", "mat")
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """CPU tensors (float16 or int64) as a .safetensors file: an 8-byte
+    little-endian header length, the JSON header (padded to 8 bytes), the
+    raw little-endian data.  Returns the bytes written."""
+    import torch
+
+    codes = {torch.float16: "F16", torch.int64: "I64"}
+    header, offset = {}, 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for name in sorted(tensors):
+            f.write(tensors[name].contiguous().numpy().data)
+    return 8 + len(raw) + offset
+
+
+def safetensors_shapes(path: str) -> dict:
+    """{name: shape} from a .safetensors file's header."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    return {k: tuple(v["shape"]) for k, v in header.items() if k != "__metadata__"}
+
+
+def write_toy_tokenizer(root: str) -> None:
+    """tokenizer/vocab.json and merges.txt: every byte symbol with and
+    without `</w>`, the merges that build TOY_WORDS, the special tokens."""
+    from geodiffuser_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    byte_chars = list(_bytes_to_unicode().values())
+    vocab, merges = byte_chars + [c + "</w>" for c in byte_chars], []
+    for word in TOY_WORDS:
+        syms = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(syms) > 1:
+            merges.append(f"{syms[0]} {syms[1]}")
+            syms = [syms[0] + syms[1]] + syms[2:]
+            vocab.append(syms[0])
+    vocab = list(dict.fromkeys(vocab)) + ["<|startoftext|>", "<|endoftext|>"]
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(dict.fromkeys(merges)) + "\n")
+
+
+def write_checkpoint(pipe, root: str):
+    """The pipeline's weights as fp16 safetensors in the diffusers layout
+    (the text encoder's file with the published `position_ids` buffer),
+    each file's keys and shapes held against the copied manifest less its
+    `unconsumed` keys, and the toy tokenizer.  Returns (the fp16 sources by
+    component, bytes written)."""
+    import torch
+
+    from geodiffuser_tpu_torch.models import weights
+
+    sources, total = {}, 0
+    for name, module in pipe.modules().items():
+        rel, manifest = weights.COMPONENTS[name]
+        sources[name] = {k: v.detach().to("cpu", torch.float16)
+                         for k, v in module.state_dict().items()}
+        tensors = dict(sources[name])
+        if name == "text":
+            tensors["text_model.embeddings.position_ids"] = torch.arange(
+                pipe.config.text_max_length)[None]
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path))
+        total += write_safetensors(path, tensors)
+        with open(weights.MANIFESTS / manifest) as f:
+            m = json.load(f)
+        drop = set(m["unconsumed"])
+        got = {k: s for k, s in safetensors_shapes(path).items() if k not in drop}
+        expect(got == {k: tuple(s) for k, s in m["keys"].items() if k not in drop},
+               f"driver: {rel} keys and shapes against {manifest}")
+    write_toy_tokenizer(root)
+    return sources, total
+
+
+def run_driver(args, pipe, card: str):
+    """The batch driver at full width, 512^2, bf16: the random pipeline
+    written as an fp16 diffusers checkpoint and loaded back with
+    `Pipeline.create(checkpoint_dir=...)` (every tensor bit-equal to its
+    fp16 source cast to bf16, the BPE tokenizer), then
+    `run_folder_sweep(use_native=True)` over an editor, a remover and a
+    stitch folder at --steps, with every launch count set to 0 just before
+    and read just after; a second sweep skips all three, a third
+    (skip_existing=False) reads every inversion from its folder.  The
+    editor folder's result is held against a direct EditSession.run of the
+    same inputs, run twice.  Returns (launches, launches by shape)."""
+    import torch
+
+    from geodiffuser_tpu_torch.config import ModelConfig
+    from geodiffuser_tpu_torch.core.editor import EditSession
+    from geodiffuser_tpu_torch.core.pipeline import Pipeline
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+    from geodiffuser_tpu_torch.models.tokenizer import CLIPTokenizer
+    from geodiffuser_tpu_torch.ops import camera
+    from geodiffuser_tpu_torch.parallel import driver
+    from geodiffuser_tpu_torch.utils import exp_io, png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, root = os.path.join(tmp, "sd14"), os.path.join(tmp, "exps")
+        t0 = time.time()
+        sources, n_bytes = write_checkpoint(pipe, ckpt)
+        write_s = time.time() - t0
+        t0 = time.time()
+        loaded = Pipeline.create(ModelConfig(), image_size=SIZE, checkpoint_dir=ckpt,
+                                 seed=args.seed + 1, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        unequal = [(name, k) for name, module in loaded.modules().items()
+                   for k, v in module.state_dict().items()
+                   if not torch.equal(v.view(torch.int16), sources[name][k].to(
+                       "cuda", torch.bfloat16).view(torch.int16))]
+        n_tensors = sum(len(s) for s in sources.values())
+        del sources
+        emb = loaded.encode_text(["a photo of the cat on the mat"])
+        log(f"driver checkpoint: {n_bytes} bytes of fp16 safetensors written in {write_s:.2f} s, "
+            f"loaded by Pipeline.create(checkpoint_dir=...) in {load_s:.2f} s; {n_tensors} "
+            f"tensors, {len(unequal)} not bit-equal to the fp16 source cast to bf16 {unequal[:4]}; "
+            f"tokenizer {type(loaded.tokenizer).__name__}, encode_text {tuple(emb.shape)}")
+        expect(not unequal, "driver: loaded weights bit-equal to the fp16 sources cast to bf16")
+        expect(isinstance(loaded.tokenizer, CLIPTokenizer) and bool(torch.isfinite(emb).all()),
+               "driver: the checkpoint's BPE tokenizer and a finite text encoding")
+
+        image, depth, mask = build_scene(SIZE)
+        folders = {"editor": os.path.join(root, "Translation_3D", "0"),
+                   "remover": os.path.join(root, "Removal", "0"),
+                   "stitch": os.path.join(root, "stitch", "0")}
+        exp_io.save_exp(folders["editor"], image, depth, mask,
+                        camera.compose_transform(**EDITOR_TRANSFORM))
+        exp_io.save_exp(folders["remover"], image, depth, mask, np.eye(4))
+        exp_io.save_exp(folders["stitch"], image, depth, mask,
+                        camera.compose_transform(**STITCH_TRANSFORM),
+                        background_image=stitch_background(args.seed))
+        overrides = dict(num_ddim_steps=args.steps)
+        sweep = lambda **kw: driver.run_folder_sweep(root, pipe=loaded, config_overrides=overrides,
+                                                     use_native=True, **kw)
+
+        for counts in launch_counts():
+            counts.update(dict.fromkeys(counts, 0))
+        fa.SHAPES.clear()
+        rc.SHAPES.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        first = sweep()
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t0
+        launches = {k: v for counts in launch_counts() for k, v in counts.items()}
+        shapes = {**fa.SHAPES, **rc.SHAPES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"driver sweep ({SIZE}^2, {args.steps} DDIM steps, native prefetcher): "
+            f"{sweep_s:.2f} s, edits (s) "
+            f"{json.dumps({k: round(first.get(f, -1.0), 3) for k, f in folders.items()})}, "
+            f"max_memory_allocated {peak:.2f} GiB; {card}")
+        log(f"driver: kernel launches {launches}")
+        log(f"driver: flash and corr launches by shape {shape_counts(shapes)}")
+        expect(set(first) == set(folders.values()), f"driver: swept {sorted(first)}")
+        for name in ("flash_fwd", "flash_bwd", "corr_fwd", "corr_bwd"):
+            expect(launches[name] > 0, f"driver: kernel {name} launched {launches[name]} times")
+        expect(launches["splat_fused"] == 1, "driver: one splat, the stitch's pre-composite")
+        results = {}
+        for kind, folder in folders.items():
+            results[kind] = png.read_png(os.path.join(folder, "result_ls.png"))
+            with open(os.path.join(folder, "loss_log.json")) as f:
+                losses = [v for lg in json.load(f).values() for v in lg.values()]
+            expect(results[kind].shape == (SIZE, SIZE, 3) and results[kind].std() > 0
+                   and losses and all(math.isfinite(v) for v in losses),
+                   f"driver: {kind} result_ls.png and a finite loss_log.json")
+
+        again = sweep()
+        inverted = []
+        undo = count_ddim_inversions(inverted)
+        try:
+            third = sweep(skip_existing=False)
+        finally:
+            undo()
+        rerun_diff = max(int(np.abs(png.read_png(os.path.join(f, "result_ls.png")).astype(int)
+                                    - results[k].astype(int)).max()) for k, f in folders.items())
+        log(f"driver: second sweep {again}; third (skip_existing=False) edits (s) "
+            f"{json.dumps({k: round(third.get(f, -1.0), 3) for k, f in folders.items()})}, "
+            f"DDIM inversions {len(inverted)} (every trajectory read from the folder's "
+            f"{exp_io.INVERSION_CACHE_FILE}), results' max difference from the first sweep "
+            f"{rerun_diff} levels")
+        expect(again == {}, "driver: the second sweep skips all three folders")
+        expect(set(third) == set(folders.values()) and not inverted,
+               "driver: the third sweep reads every inversion from the cache")
+
+        exp = exp_io.read_exp(folders["editor"])
+        cfg = dataclasses.replace(driver.config_for_edit_type("geometry_editor"), **overrides)
+        direct = [EditSession(loaded, cfg).run(exp.input_image, exp.depth, exp.input_mask,
+                                               exp.transform).edited_image for _ in range(2)]
+        d_sweep = int(np.abs(direct[0].astype(int) - results["editor"].astype(int)).max())
+        d_self = int(np.abs(direct[0].astype(int) - direct[1].astype(int)).max())
+        log(f"driver: editor folder's result vs a direct EditSession.run: max {d_sweep} uint8 "
+            f"levels (bound {DRIVER_EDIT_LEVELS}); two direct runs differ by {d_self}")
+        expect(d_sweep <= DRIVER_EDIT_LEVELS, "driver: the sweep's editor result")
+        del loaded
+
+        # the command line a user runs, in a process of its own: the first
+        # folder again (Removal sorts first), its weights from the checkpoint
+        pkg_root = str(pathlib.Path(driver.__file__).resolve().parents[2])
+        cmd = [sys.executable, "-m", "geodiffuser_tpu_torch.parallel.driver", root,
+               "--checkpoint-dir", ckpt, "--steps", str(args.steps), "--size", str(SIZE),
+               "--no-skip-existing", "--limit", "1"]
+        t0 = time.time()
+        cli = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=pkg_root,
+                             env=dict(os.environ, PYTHONPATH=pkg_root))
+        out = cli.stdout.strip().splitlines()
+        log(f"driver command line (python -m geodiffuser_tpu_torch.parallel.driver ... "
+            f"--checkpoint-dir ... --limit 1): exit {cli.returncode} in {time.time() - t0:.1f} s, "
+            f"{out[-1] if out else cli.stderr[-2000:]}")
+        expect(cli.returncode == 0 and out and json.loads(out[-1])["edits"] == 1,
+               "driver: the command line sweeps one folder")
+    torch.cuda.empty_cache()
+    return launches, shapes
 
 
 def small_reference(edit_type: str):
@@ -1168,6 +1423,9 @@ def main(argv=None) -> int:
     for path in ("editor1024", "remover1024"):
         runs[path] = run_path(args, large, path)[:2]
     del large
+    t0 = time.time()
+    runs["driver"] = run_driver(args, pipe, card)
+    log(f"driver phase: {time.time() - t0:.1f} s")
     by_path = {path: launches for path, (launches, _) in runs.items()}
     timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
              | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES}

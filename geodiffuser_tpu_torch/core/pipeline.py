@@ -1,15 +1,16 @@
 """Stable-Diffusion pipeline context: models, tokenizer, schedule, device.
 
-Counterpart of `geodiffuser_tpu/core/pipeline.py`.  Weights are initialised
-randomly from a seed (the JAX package does the same when it has no
-checkpoint), or carried over from the JAX package's parameters with
-`models.weights.from_jax_params` and `load_state_dicts`.
+Counterpart of `geodiffuser_tpu/core/pipeline.py`.  Weights are loaded from a
+local diffusers-layout checkpoint (`models.weights.load_sd_checkpoint`) when
+`create` is given one, else initialised randomly from a seed (as the JAX
+package does without a checkpoint); `models.weights.from_jax_params` and
+`load_state_dicts` carry over the JAX package's parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -17,7 +18,8 @@ import torch
 from geodiffuser_tpu_torch.config import ModelConfig, SchedulerConfig
 from geodiffuser_tpu_torch.core import scheduler as sched
 from geodiffuser_tpu_torch.models.clip_text import CLIPTextEncoder
-from geodiffuser_tpu_torch.models.tokenizer import HashTokenizer, load_tokenizer
+from geodiffuser_tpu_torch.models import weights as weights_lib
+from geodiffuser_tpu_torch.models.tokenizer import CLIPTokenizer, HashTokenizer, load_tokenizer
 from geodiffuser_tpu_torch.models.unet import UNet2DCondition
 from geodiffuser_tpu_torch.models.vae import AutoencoderKL
 
@@ -37,7 +39,7 @@ class Pipeline:
     unet: UNet2DCondition
     vae: AutoencoderKL
     text_encoder: CLIPTextEncoder
-    tokenizer: HashTokenizer
+    tokenizer: Union[CLIPTokenizer, HashTokenizer]
     schedule: sched.Schedule
     device: torch.device
     image_size: int = 512
@@ -47,9 +49,11 @@ class Pipeline:
         return self.image_size // 8
 
     @staticmethod
-    def create(config: ModelConfig = ModelConfig(), image_size: int = 512, seed: int = 0,
-               device="cuda") -> "Pipeline":
-        """Random initialisation from `seed`, built directly on `device`."""
+    def create(config: ModelConfig = ModelConfig(), image_size: int = 512,
+               checkpoint_dir: Optional[str] = None, seed: int = 0, device="cuda") -> "Pipeline":
+        """Built directly on `device`: random initialisation from `seed`,
+        then, given `checkpoint_dir` (the diffusers layout), its weights
+        (cast to `config.dtype`) and its tokenizer when it has one."""
         dev = resolve_device(device)
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
             torch.manual_seed(seed)
@@ -59,17 +63,27 @@ class Pipeline:
                 text = CLIPTextEncoder(config)
         for m in (unet, vae, text):
             m.to(config.dtype).eval().requires_grad_(False)
-        return Pipeline(
+        pipe = Pipeline(
             config=config, unet=unet, vae=vae, text_encoder=text,
-            tokenizer=load_tokenizer(config.text_vocab_size, config.text_max_length),
+            tokenizer=load_tokenizer(checkpoint_dir, config.text_vocab_size,
+                                     config.text_max_length),
             schedule=sched.make_schedule(SchedulerConfig()), device=dev, image_size=image_size,
         )
+        if checkpoint_dir:
+            weights_lib.load_sd_checkpoint(checkpoint_dir, pipe)
+        return pipe
+
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        return {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
 
     def load_state_dicts(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
-        """Load {"unet", "vae", "text"} state_dicts (strict), cast to the model type."""
-        for name, module in (("unet", self.unet), ("vae", self.vae), ("text", self.text_encoder)):
-            sd = {k: v.to(self.device, self.config.dtype) for k, v in state_dicts[name].items()}
-            module.load_state_dict(sd, strict=True)
+        """Load the given ones of the {"unet", "vae", "text"} state_dicts
+        (strict), cast to the model type."""
+        for name, module in self.modules().items():
+            if name in state_dicts:
+                sd = {k: v.to(self.device, self.config.dtype)
+                      for k, v in state_dicts[name].items()}
+                module.load_state_dict(sd, strict=True)
 
     @torch.no_grad()
     def encode_text(self, prompts: Sequence[str]) -> torch.Tensor:
@@ -81,7 +95,13 @@ class Pipeline:
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         """(H, W, 3) float in [0, 1] -> (1, h, w, 4) scaled latents
         (image2latent, diffusion.py:71-97)."""
-        x = (image.float() * 2.0 - 1.0)[None]
+        return self.encode_images(image[None])
+
+    @torch.no_grad()
+    def encode_images(self, images: torch.Tensor) -> torch.Tensor:
+        """(E, H, W, 3) float in [0, 1] -> (E, h, w, 4) scaled latents: one
+        VAE pass for a batch of edits."""
+        x = images.float() * 2.0 - 1.0
         return self.vae.encode(x) * self.config.vae_scaling_factor
 
     @torch.no_grad()

@@ -1,6 +1,5 @@
-"""Pinhole camera geometry: the part of `geodiffuser_tpu/ops/camera.py` the
-transform field needs (reference warp_utils.py:495-747, vis_utils.py:79-88,
-ui_utils.py:529-555).
+"""Pinhole camera geometry: counterpart of `geodiffuser_tpu/ops/camera.py`
+(reference warp_utils.py:495-747, vis_utils.py:79-88, ui_utils.py:529-555).
 
 Images are (H, W, C); camera frame x-right, y-down, z-forward; NDC in
 [-1, 1] with align_corners=True semantics.
@@ -103,9 +102,81 @@ def cam2pixel(cam_coords: torch.Tensor, rot: torch.Tensor, tr: torch.Tensor,
     return torch.stack([x_ndc, y_ndc, z], dim=-1).reshape(h, w, 3)
 
 
+def transform_field(depth: torch.Tensor, intrinsics: torch.Tensor, transform: torch.Tensor,
+                    obj_mask: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) target (x_ndc, y_ndc, z) of every pixel under a 4x4 edit
+    transform: unproject with `depth`, recenter the transform about the
+    masked object's centroid, reproject (forward_splatting_pytorch3d_warp,
+    warp_utils.py:407-444, without the splat)."""
+    cam = pixel2cam(depth, torch.linalg.inv(intrinsics.float()))
+    t = recenter_transform(transform, cam, obj_mask)
+    return cam2pixel(cam, t[:3, :3], t[:3, 3:4], intrinsics)
+
+
 def identity_field(height: int, width: int, device=None) -> torch.Tensor:
     """Every pixel maps to itself at z=1."""
     y = torch.linspace(-1.0, 1.0, height, dtype=torch.float32, device=device)
     x = torch.linspace(-1.0, 1.0, width, dtype=torch.float32, device=device)
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     return torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
+
+
+def cam2pixel_occlusion(cam_coords: torch.Tensor, rot: torch.Tensor, tr: torch.Tensor,
+                        intrinsics: torch.Tensor, far_clip: float = 100.0) -> torch.Tensor:
+    """Occlusion-aware backward-sampling field (the reference's `cam2pixel`,
+    warp_utils.py:495-595, used by `forward_warp` :768-795): each source
+    pixel's forward delta is written at its rounded target cell, the
+    nearest in z winning (ties to the lowest source index); cells no pixel
+    reaches keep their own delta.  Returns (H, W, 2) NDC sampling
+    coordinates src - delta (align_corners=True)."""
+    _, h, w = cam_coords.shape
+    flat = cam_coords.reshape(3, -1).float()
+    p = rot.float() @ flat + tr.float().reshape(3, 1)
+    far = p[2] > far_clip
+    p = intrinsics.float() @ p
+    z = torch.clamp(p[2], min=1e-8)
+    x_ndc = 2.0 * (p[0] / z) / (w - 1) - 1.0
+    y_ndc = 2.0 * (p[1] / z) / (h - 1) - 1.0
+
+    grid = pixel_grid(h, w, cam_coords.device)
+    src = torch.stack([2.0 * grid[0] / (w - 1) - 1.0, 2.0 * grid[1] / (h - 1) - 1.0], dim=-1)
+    tgt = torch.stack([x_ndc, y_ndc], dim=-1)
+    tgt = torch.where(far[:, None], src, tgt)            # far clip -> identity
+    delta = tgt - src
+
+    ty = torch.clamp(torch.round((tgt[:, 1] + 1.0) * 0.5 * (h - 1)), 0, h - 1)
+    tx = torch.clamp(torch.round((tgt[:, 0] + 1.0) * 0.5 * (w - 1)), 0, w - 1)
+    t_idx = (ty * w + tx).long()
+    zmin = torch.full((h * w,), float("inf"), device=z.device).scatter_reduce(
+        0, t_idx, z, reduce="amin")
+    is_near = z <= zmin[t_idx]
+    src_idx = torch.arange(h * w, device=z.device)
+    first = torch.full((h * w,), 2 ** 30, dtype=torch.long, device=z.device).scatter_reduce(
+        0, t_idx, torch.where(is_near, src_idx, torch.full_like(src_idx, 2 ** 30)), reduce="amin")
+    winner = is_near & (src_idx == first[t_idx])
+    delta_grid = delta.clone()
+    delta_grid[t_idx[winner]] = delta[winner]
+    return (src - delta_grid).reshape(h, w, 2)
+
+
+def backward_warp(image: torch.Tensor, field: torch.Tensor) -> torch.Tensor:
+    """Bilinear backward warp of (H, W, C) by an (H, W, 2) NDC field
+    (align_corners=True, zero padding): the consumer of
+    cam2pixel_occlusion (forward_warp, warp_utils.py:768-795)."""
+    h, w, _ = image.shape
+    x = (field[..., 0] + 1.0) * 0.5 * (w - 1)
+    y = (field[..., 1] + 1.0) * 0.5 * (h - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    out = torch.zeros_like(image)
+    for dy in (0.0, 1.0):
+        for dx in (0.0, 1.0):
+            cx = x0 + dx
+            cy = y0 + dy
+            wgt = (1.0 - torch.abs(x - cx)) * (1.0 - torch.abs(y - cy))
+            valid = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+            cxc = torch.clamp(cx, 0, w - 1).long()
+            cyc = torch.clamp(cy, 0, h - 1).long()
+            wgt = torch.where(valid, wgt, torch.zeros_like(wgt))
+            out = out + image[cyc, cxc] * wgt[..., None]
+    return out

@@ -75,6 +75,23 @@ def gaussian_smooth_2d(x: torch.Tensor, size: int = 3, sigma: float | None = Non
     return out.reshape(lead + (h, w))
 
 
+def max_pool_same(mask: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """(2k+1)-window max pool of an (H, W) map at stride 1, same size
+    (the reference's smooth_mask, attention_sharing.py:50-65)."""
+    window = 2 * k + 1
+    return F.max_pool2d(mask.float()[None, None], window, stride=1, padding=k)[0, 0]
+
+
+def adain(feat: torch.Tensor, feat_ref: torch.Tensor, dim: int = -2, eps: float = 1e-5
+          ) -> torch.Tensor:
+    """Adaptive instance normalization along `dim` (generic_torch.py:237-253)."""
+    mean = feat.mean(dim=dim, keepdim=True)
+    std = torch.sqrt(feat.var(dim=dim, keepdim=True, unbiased=False) + eps)
+    mean_r = feat_ref.mean(dim=dim, keepdim=True)
+    std_r = torch.sqrt(feat_ref.var(dim=dim, keepdim=True, unbiased=False) + eps)
+    return (feat - mean) / std * std_r + mean_r
+
+
 def norm_tensor(a: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Frobenius norm (generic_torch.py:87-88)."""
     return torch.sqrt(torch.sum(a * a) + eps)

@@ -1,10 +1,11 @@
-"""Forward warping by soft z-buffer point splatting: the editor's part of
-`geodiffuser_tpu/ops/splat.py` (replacing the reference's PyTorch3D
-rasterizer, warp_utils.py:28-176).
+"""Warping: soft z-buffer point splatting, backward sampling and summation
+splatting, the counterpart of `geodiffuser_tpu/ops/splat.py` (replacing the
+reference's PyTorch3D rasterizer, warp_utils.py:28-176, its `warp_grid_edit`
+dispatcher, warp_utils.py:798-837, and softsplat.py).
 
-Two passes: a scatter-min of depth per target pixel (`scatter_reduce_`
-"amin"), then a scatter-add (`index_add_`) of weight * feature, weight and
-the alpha-over coverage term, with
+The splat has two passes: a scatter-min of depth per target pixel
+(`scatter_reduce_` "amin"), then a scatter-add (`index_add_`) of
+weight * feature, weight and the alpha-over coverage term, with
     weight = alpha_spatial * exp(-z_beta * (z - zmin[pixel])),
     alpha_spatial = (1 - sqrt(clip(d^2 / r^2, 0, 1)))^tau.
 Corners are bucketed with an fp32 `floor`, as in the JAX package.  On CUDA
@@ -15,6 +16,7 @@ differ between runs by float32 rounding (a few ulp of the sums).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from geodiffuser_tpu_torch.ops import image as image_ops
 
@@ -132,3 +134,110 @@ def apply_warp_matrix(mat: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     side = int(mat.shape[0] ** 0.5)
     out = mat @ src.reshape(h * w, c).to(mat.dtype)
     return out.reshape(side, side, c).to(src.dtype)
+
+
+def splat_batch(src: torch.Tensor, coords: torch.Tensor, **kw) -> torch.Tensor:
+    """`splat_image` over a leading batch axis of (B, H, W, C) / (B, H, W, 3)."""
+    return torch.stack([splat_image(s, c, **kw) for s, c in zip(src, coords)])
+
+
+def grid_sample(src: torch.Tensor, coords: torch.Tensor, padding: str = "zeros") -> torch.Tensor:
+    """Backward warp (gather): sample (H, W, C) at (H', W', 2) NDC locations,
+    bilinear with align_corners=True (the reference's fallback path,
+    warp_utils.py:826-837, forward_warp warp_utils.py:768-795).  `padding`
+    "zeros" or "reflection" (mirrored about the edge pixels)."""
+    if padding not in ("zeros", "reflection"):
+        raise ValueError(f"unknown grid_sample padding {padding!r}")
+    x = src.float().permute(2, 0, 1)[None]
+    out = F.grid_sample(x, coords[None, ..., :2].float(), mode="bilinear", padding_mode=padding,
+                        align_corners=True)
+    return out[0].permute(1, 2, 0)
+
+
+def warp_field(src: torch.Tensor, coords: torch.Tensor, radius: float = 1.3, tau: float = 1.0,
+               z_beta: float = 20.0, use_splat: bool = True, padding: str = "zeros"
+               ) -> torch.Tensor:
+    """The single warp entry point (role of warp_grid_edit,
+    warp_utils.py:798-837).  src (H, W, C); coords (H, W, 3) for splatting
+    or (..., 2/3) for sampling."""
+    if use_splat:
+        return splat_image(src, coords, radius=radius, tau=tau, z_beta=z_beta)
+    return grid_sample(src, coords[..., :2], padding=padding)
+
+
+# ---------------------------------------------------------------------------
+# softsplat (summation splatting), reference softsplat.py:232-273: bilinear
+# scatter-add of the input along a pixel-offset flow; the modes add a
+# normalisation channel:
+#   sum     raw scatter-add                       (metric unused)
+#   avg     append a ones channel, divide by it
+#   linear  splat (in*metric | metric), divide
+#   soft    splat (in*e^metric | e^metric), divide
+# autograd differentiates the scatter-add, as the reference's hand-written
+# backward (softsplat.py:357-520) does.
+# ---------------------------------------------------------------------------
+
+def _bilinear_scatter(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) src + (H, W, 2) pixel-offset flow -> (H, W, C) scatter-add;
+    corners outside the image are dropped (softsplat.py:316-341)."""
+    h, w, c = src.shape
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=src.device),
+                            torch.arange(w, dtype=torch.float32, device=src.device),
+                            indexing="ij")
+    tx = xx + flow[..., 0]
+    ty = yy + flow[..., 1]
+    x0 = torch.floor(tx)
+    y0 = torch.floor(ty)
+    flat = src.reshape(h * w, c)
+    out = torch.zeros((h * w + 1, c), dtype=src.dtype, device=src.device)
+    for dy in (0.0, 1.0):
+        for dx in (0.0, 1.0):
+            cx = x0 + dx
+            cy = y0 + dy
+            # per-axis bounds: a flat index would let a column overflow into
+            # the next row
+            valid = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+            wgt = (1.0 - torch.abs(tx - cx)) * (1.0 - torch.abs(ty - cy))
+            wgt = torch.where(valid, wgt, torch.zeros_like(wgt)).reshape(-1, 1)
+            idx = torch.where(valid, cy * w + cx, torch.full_like(cx, h * w)).long().reshape(-1)
+            out = out.index_add(0, idx, flat * wgt.to(src.dtype))
+    return out[:-1].reshape(h, w, c)
+
+
+def softsplat(src: torch.Tensor, flow: torch.Tensor, metric: torch.Tensor | None = None,
+              mode: str = "soft") -> torch.Tensor:
+    """Differentiable forward warping with the reference's mode semantics
+    (softsplat.py:232-273).  src (H, W, C), flow (H, W, 2) in pixels, metric
+    (H, W) or (H, W, 1); eps variants '<mode>-addeps' (the default of bare
+    avg/linear/soft), '<mode>-zeroeps', '<mode>-clipeps'."""
+    base, _, eps_kind = mode.partition("-")
+    if base not in ("sum", "avg", "linear", "soft"):
+        raise ValueError(f"unknown softsplat mode {mode!r}")
+    if eps_kind not in ("", "addeps", "zeroeps", "clipeps"):
+        raise ValueError(f"unknown softsplat eps variant {mode!r}")
+    if base in ("sum", "avg") and metric is not None:
+        raise ValueError(f"mode {base} takes no metric")
+    if base in ("linear", "soft") and metric is None:
+        raise ValueError(f"mode {base} needs a metric")
+    if metric is not None and metric.ndim == 2:
+        metric = metric[..., None]
+
+    if base == "sum":
+        return _bilinear_scatter(src, flow)
+    if base == "avg":
+        stacked = torch.cat([src, torch.ones_like(src[..., :1])], dim=-1)
+    elif base == "linear":
+        stacked = torch.cat([src * metric, metric], dim=-1)
+    else:  # soft
+        e = torch.exp(metric)
+        stacked = torch.cat([src * e, e], dim=-1)
+
+    out = _bilinear_scatter(stacked, flow)
+    norm = out[..., -1:]
+    if eps_kind in ("", "addeps"):
+        norm = norm + 1e-7
+    elif eps_kind == "zeroeps":
+        norm = torch.where(norm == 0.0, torch.ones_like(norm), norm)
+    else:  # clipeps
+        norm = torch.clamp(norm, min=1e-7)
+    return out[..., :-1] / norm

@@ -23,19 +23,38 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n == "jax" or n.startswith("jax.") or n == "flax" or n.startswith("flax.")
-             or n == "geodiffuser_tpu" or n.startswith("geodiffuser_tpu."))
+             if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors"))
 print(len(names), bad)
 assert len(names) >= 21, names
 assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.editor",
         "geodiffuser_tpu_torch.core.edit_attention", "geodiffuser_tpu_torch.core.inversion",
-        "geodiffuser_tpu_torch.utils.exp_io"} <= set(names), names
+        "geodiffuser_tpu_torch.utils.exp_io", "geodiffuser_tpu_torch.utils.png",
+        "geodiffuser_tpu_torch.native.loader", "geodiffuser_tpu_torch.parallel.driver",
+        "geodiffuser_tpu_torch.parallel.sharding"} <= set(names), names
 assert not bad, bad
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+IMPORT_DRIVER = r"""
+import sys
+import geodiffuser_tpu_torch.parallel.driver, geodiffuser_tpu_torch.native.loader
+import geodiffuser_tpu_torch.utils.png, geodiffuser_tpu_torch.models.weights
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "geodiffuser_tpu", "PIL", "safetensors"))
+assert not bad, bad
+"""
+
+
+def test_driver_path_imports_neither_jax_pil_nor_safetensors():
+    """The batch driver, the native loader, the PNG codec and the checkpoint
+    loader: no JAX, no JAX package, no PIL and no safetensors package."""
+    out = subprocess.run([sys.executable, "-c", IMPORT_DRIVER], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
 
