@@ -38,6 +38,18 @@ Phases, each of which fails the run on error:
      its folder, the editor folder's result against a direct
      `EditSession.run` (equal bits), and the command line
      `python -m geodiffuser_tpu_torch.parallel.driver` on one folder;
+     then the evaluation package ("evaluation"): an SD-2.1 pipeline at full
+     geometry (64-wide heads, bf16, random weights from --seed) written as
+     an fp16 checkpoint, its keys against the SD-2.1 manifests, loaded back
+     bit-equal, one DIFT draw through the flash kernels against one with
+     the plain version, `mean_distance_metric` (8 noise draws) on the
+     scene against the driver's edited editor folder with every launch
+     count set to 0 just before and read just after (flash must launch at
+     both D-64 shapes), and the evaluation CLI
+     (`python -m geodiffuser_tpu_torch.evaluation`: --metric md, offline,
+     lpips, clip and fid on the driver's three folders and --path_1/--path_2,
+     with random AlexNet/LPIPS .pth and CLIP ViT-B/32 weights) in a process
+     of its own;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
 `--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
@@ -58,6 +70,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import struct
 import subprocess
 import sys
@@ -144,9 +157,14 @@ def flash_path_shapes(size: int):
     return fwd, [(8, l, l, d) for l, d in levels]
 
 
+# the evaluation's DIFT featurizer, SD-2.1 at 512^2 with batch 1 a noise
+# draw: 64-wide heads, 5 at the 64^2 level (down block 0, up block 3) and 10
+# at 32^2 (down block 1, up block 2); the kernels pad D 64 to their 80 variant
+DIFT_FLASH_SHAPES = [(5, 4096, 4096, 64), (10, 1024, 1024, 64)]
 # each checked and timed: the 512^2 paths' shapes, then the 1024^2 paths'
-# (128^2 at D 40, 64^2 at D 80, 32^2 at D 160)
-FLASH_FWD_SHAPES = flash_path_shapes(512)[0] + flash_path_shapes(1024)[0]
+# (128^2 at D 40, 64^2 at D 80, 32^2 at D 160), then the featurizer's
+FLASH_FWD_SHAPES = (flash_path_shapes(512)[0] + flash_path_shapes(1024)[0]
+                    + DIFT_FLASH_SHAPES)
 FLASH_BWD_SHAPES = flash_path_shapes(512)[1] + flash_path_shapes(1024)[1]
 # float32 (CUDA-core kernels, the card-vs-CPU edits' type): a shape of each
 # class at each head width
@@ -1109,7 +1127,7 @@ def write_checkpoint(pipe, root: str):
 
     sources, total = {}, 0
     for name, module in pipe.modules().items():
-        rel, manifest = weights.COMPONENTS[name]
+        rel, manifest = weights.components(pipe.config)[name]
         sources[name] = {k: v.detach().to("cpu", torch.float16)
                          for k, v in module.state_dict().items()}
         tensors = dict(sources[name])
@@ -1124,12 +1142,23 @@ def write_checkpoint(pipe, root: str):
         drop = set(m["unconsumed"])
         got = {k: s for k, s in safetensors_shapes(path).items() if k not in drop}
         expect(got == {k: tuple(s) for k, s in m["keys"].items() if k not in drop},
-               f"driver: {rel} keys and shapes against {manifest}")
+               f"{rel} keys and shapes against {manifest}")
     write_toy_tokenizer(root)
     return sources, total
 
 
-def run_driver(args, pipe, card: str):
+def unequal_tensors(loaded, sources: dict) -> list:
+    """(component, key) of every loaded tensor that is not bit-equal to its
+    fp16 source cast to the model type."""
+    import torch
+
+    return [(name, k) for name, module in loaded.modules().items()
+            for k, v in module.state_dict().items()
+            if not torch.equal(v.view(torch.int16), sources[name][k].to(
+                "cuda", loaded.config.dtype).view(torch.int16))]
+
+
+def run_driver(args, pipe, card: str, tmp: str):
     """The batch driver at full width, 512^2, bf16: the random pipeline
     written as an fp16 diffusers checkpoint and loaded back with
     `Pipeline.create(checkpoint_dir=...)` (every tensor bit-equal to its
@@ -1139,7 +1168,8 @@ def run_driver(args, pipe, card: str):
     and read just after; a second sweep skips all three, a third
     (skip_existing=False) reads every inversion from its folder.  The
     editor folder's result is held against a direct EditSession.run of the
-    same inputs, run twice.  Returns (launches, launches by shape)."""
+    same inputs, run twice.  Everything is written under `tmp`.  Returns
+    (launches, launches by shape, the experiment root)."""
     import torch
 
     from geodiffuser_tpu_torch.config import ModelConfig
@@ -1152,122 +1182,349 @@ def run_driver(args, pipe, card: str):
     from geodiffuser_tpu_torch.parallel import driver
     from geodiffuser_tpu_torch.utils import exp_io, png
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt, root = os.path.join(tmp, "sd14"), os.path.join(tmp, "exps")
-        t0 = time.time()
-        sources, n_bytes = write_checkpoint(pipe, ckpt)
-        write_s = time.time() - t0
-        t0 = time.time()
-        loaded = Pipeline.create(ModelConfig(), image_size=SIZE, checkpoint_dir=ckpt,
-                                 seed=args.seed + 1, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.time() - t0
-        unequal = [(name, k) for name, module in loaded.modules().items()
-                   for k, v in module.state_dict().items()
-                   if not torch.equal(v.view(torch.int16), sources[name][k].to(
-                       "cuda", torch.bfloat16).view(torch.int16))]
-        n_tensors = sum(len(s) for s in sources.values())
-        del sources
-        emb = loaded.encode_text(["a photo of the cat on the mat"])
-        log(f"driver checkpoint: {n_bytes} bytes of fp16 safetensors written in {write_s:.2f} s, "
-            f"loaded by Pipeline.create(checkpoint_dir=...) in {load_s:.2f} s; {n_tensors} "
-            f"tensors, {len(unequal)} not bit-equal to the fp16 source cast to bf16 {unequal[:4]}; "
-            f"tokenizer {type(loaded.tokenizer).__name__}, encode_text {tuple(emb.shape)}")
-        expect(not unequal, "driver: loaded weights bit-equal to the fp16 sources cast to bf16")
-        expect(isinstance(loaded.tokenizer, CLIPTokenizer) and bool(torch.isfinite(emb).all()),
-               "driver: the checkpoint's BPE tokenizer and a finite text encoding")
+    ckpt, root = os.path.join(tmp, "sd14"), os.path.join(tmp, "exps")
+    t0 = time.time()
+    sources, n_bytes = write_checkpoint(pipe, ckpt)
+    write_s = time.time() - t0
+    t0 = time.time()
+    loaded = Pipeline.create(ModelConfig(), image_size=SIZE, checkpoint_dir=ckpt,
+                             seed=args.seed + 1, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    unequal = unequal_tensors(loaded, sources)
+    n_tensors = sum(len(s) for s in sources.values())
+    del sources
+    emb = loaded.encode_text(["a photo of the cat on the mat"])
+    log(f"driver checkpoint: {n_bytes} bytes of fp16 safetensors written in {write_s:.2f} s, "
+        f"loaded by Pipeline.create(checkpoint_dir=...) in {load_s:.2f} s; {n_tensors} "
+        f"tensors, {len(unequal)} not bit-equal to the fp16 source cast to bf16 {unequal[:4]}; "
+        f"tokenizer {type(loaded.tokenizer).__name__}, encode_text {tuple(emb.shape)}")
+    expect(not unequal, "driver: loaded weights bit-equal to the fp16 sources cast to bf16")
+    expect(isinstance(loaded.tokenizer, CLIPTokenizer) and bool(torch.isfinite(emb).all()),
+           "driver: the checkpoint's BPE tokenizer and a finite text encoding")
 
-        image, depth, mask = build_scene(SIZE)
-        folders = {"editor": os.path.join(root, "Translation_3D", "0"),
-                   "remover": os.path.join(root, "Removal", "0"),
-                   "stitch": os.path.join(root, "stitch", "0")}
-        exp_io.save_exp(folders["editor"], image, depth, mask,
-                        camera.compose_transform(**EDITOR_TRANSFORM))
-        exp_io.save_exp(folders["remover"], image, depth, mask, np.eye(4))
-        exp_io.save_exp(folders["stitch"], image, depth, mask,
-                        camera.compose_transform(**STITCH_TRANSFORM),
-                        background_image=stitch_background(args.seed))
-        overrides = dict(num_ddim_steps=args.steps)
-        sweep = lambda **kw: driver.run_folder_sweep(root, pipe=loaded, config_overrides=overrides,
-                                                     use_native=True, **kw)
+    image, depth, mask = build_scene(SIZE)
+    folders = {"editor": os.path.join(root, "Translation_3D", "0"),
+               "remover": os.path.join(root, "Removal", "0"),
+               "stitch": os.path.join(root, "stitch", "0")}
+    exp_io.save_exp(folders["editor"], image, depth, mask,
+                    camera.compose_transform(**EDITOR_TRANSFORM))
+    exp_io.save_exp(folders["remover"], image, depth, mask, np.eye(4))
+    exp_io.save_exp(folders["stitch"], image, depth, mask,
+                    camera.compose_transform(**STITCH_TRANSFORM),
+                    background_image=stitch_background(args.seed))
+    overrides = dict(num_ddim_steps=args.steps)
+    sweep = lambda **kw: driver.run_folder_sweep(root, pipe=loaded, config_overrides=overrides,
+                                                 use_native=True, **kw)
 
-        for counts in launch_counts():
-            counts.update(dict.fromkeys(counts, 0))
-        fa.SHAPES.clear()
-        rc.SHAPES.clear()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        first = sweep()
-        torch.cuda.synchronize()
-        sweep_s = time.time() - t0
-        launches = {k: v for counts in launch_counts() for k, v in counts.items()}
-        shapes = {**fa.SHAPES, **rc.SHAPES}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"driver sweep ({SIZE}^2, {args.steps} DDIM steps, native prefetcher): "
-            f"{sweep_s:.2f} s, edits (s) "
-            f"{json.dumps({k: round(first.get(f, -1.0), 3) for k, f in folders.items()})}, "
-            f"max_memory_allocated {peak:.2f} GiB; {card}")
-        log(f"driver: kernel launches {launches}")
-        log(f"driver: flash and corr launches by shape {shape_counts(shapes)}")
-        expect(set(first) == set(folders.values()), f"driver: swept {sorted(first)}")
-        for name in ("flash_fwd", "flash_bwd", "corr_fwd", "corr_bwd"):
-            expect(launches[name] > 0, f"driver: kernel {name} launched {launches[name]} times")
-        expect(launches["splat_fused"] == 1, "driver: one splat, the stitch's pre-composite")
-        results = {}
-        for kind, folder in folders.items():
-            results[kind] = png.read_png(os.path.join(folder, "result_ls.png"))
-            with open(os.path.join(folder, "loss_log.json")) as f:
-                losses = [v for lg in json.load(f).values() for v in lg.values()]
-            expect(results[kind].shape == (SIZE, SIZE, 3) and results[kind].std() > 0
-                   and losses and all(math.isfinite(v) for v in losses),
-                   f"driver: {kind} result_ls.png and a finite loss_log.json")
-
-        again = sweep()
-        inverted = []
-        undo = count_ddim_inversions(inverted)
-        try:
-            third = sweep(skip_existing=False)
-        finally:
-            undo()
-        rerun_diff = max(int(np.abs(png.read_png(os.path.join(f, "result_ls.png")).astype(int)
-                                    - results[k].astype(int)).max()) for k, f in folders.items())
-        log(f"driver: second sweep {again}; third (skip_existing=False) edits (s) "
-            f"{json.dumps({k: round(third.get(f, -1.0), 3) for k, f in folders.items()})}, "
-            f"DDIM inversions {len(inverted)} (every trajectory read from the folder's "
-            f"{exp_io.INVERSION_CACHE_FILE}), results' max difference from the first sweep "
-            f"{rerun_diff} levels")
-        expect(again == {}, "driver: the second sweep skips all three folders")
-        expect(set(third) == set(folders.values()) and not inverted,
-               "driver: the third sweep reads every inversion from the cache")
-
-        exp = exp_io.read_exp(folders["editor"])
-        cfg = dataclasses.replace(driver.config_for_edit_type("geometry_editor"), **overrides)
-        direct = [EditSession(loaded, cfg).run(exp.input_image, exp.depth, exp.input_mask,
-                                               exp.transform).edited_image for _ in range(2)]
-        d_sweep = int(np.abs(direct[0].astype(int) - results["editor"].astype(int)).max())
-        d_self = int(np.abs(direct[0].astype(int) - direct[1].astype(int)).max())
-        log(f"driver: editor folder's result vs a direct EditSession.run: max {d_sweep} uint8 "
-            f"levels (bound {DRIVER_EDIT_LEVELS}); two direct runs differ by {d_self}")
-        expect(d_sweep <= DRIVER_EDIT_LEVELS, "driver: the sweep's editor result")
-        del loaded
-
-        # the command line a user runs, in a process of its own: the first
-        # folder again (Removal sorts first), its weights from the checkpoint
-        pkg_root = str(pathlib.Path(driver.__file__).resolve().parents[2])
-        cmd = [sys.executable, "-m", "geodiffuser_tpu_torch.parallel.driver", root,
-               "--checkpoint-dir", ckpt, "--steps", str(args.steps), "--size", str(SIZE),
-               "--no-skip-existing", "--limit", "1"]
-        t0 = time.time()
-        cli = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=pkg_root,
-                             env=dict(os.environ, PYTHONPATH=pkg_root))
-        out = cli.stdout.strip().splitlines()
-        log(f"driver command line (python -m geodiffuser_tpu_torch.parallel.driver ... "
-            f"--checkpoint-dir ... --limit 1): exit {cli.returncode} in {time.time() - t0:.1f} s, "
-            f"{out[-1] if out else cli.stderr[-2000:]}")
-        expect(cli.returncode == 0 and out and json.loads(out[-1])["edits"] == 1,
-               "driver: the command line sweeps one folder")
+    for counts in launch_counts():
+        counts.update(dict.fromkeys(counts, 0))
+    fa.SHAPES.clear()
+    rc.SHAPES.clear()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    first = sweep()
+    torch.cuda.synchronize()
+    sweep_s = time.time() - t0
+    launches = {k: v for counts in launch_counts() for k, v in counts.items()}
+    shapes = {**fa.SHAPES, **rc.SHAPES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"driver sweep ({SIZE}^2, {args.steps} DDIM steps, native prefetcher): "
+        f"{sweep_s:.2f} s, edits (s) "
+        f"{json.dumps({k: round(first.get(f, -1.0), 3) for k, f in folders.items()})}, "
+        f"max_memory_allocated {peak:.2f} GiB; {card}")
+    log(f"driver: kernel launches {launches}")
+    log(f"driver: flash and corr launches by shape {shape_counts(shapes)}")
+    expect(set(first) == set(folders.values()), f"driver: swept {sorted(first)}")
+    for name in ("flash_fwd", "flash_bwd", "corr_fwd", "corr_bwd"):
+        expect(launches[name] > 0, f"driver: kernel {name} launched {launches[name]} times")
+    expect(launches["splat_fused"] == 1, "driver: one splat, the stitch's pre-composite")
+    results = {}
+    for kind, folder in folders.items():
+        results[kind] = png.read_png(os.path.join(folder, "result_ls.png"))
+        with open(os.path.join(folder, "loss_log.json")) as f:
+            losses = [v for lg in json.load(f).values() for v in lg.values()]
+        expect(results[kind].shape == (SIZE, SIZE, 3) and results[kind].std() > 0
+               and losses and all(math.isfinite(v) for v in losses),
+               f"driver: {kind} result_ls.png and a finite loss_log.json")
+
+    again = sweep()
+    inverted = []
+    undo = count_ddim_inversions(inverted)
+    try:
+        third = sweep(skip_existing=False)
+    finally:
+        undo()
+    rerun_diff = max(int(np.abs(png.read_png(os.path.join(f, "result_ls.png")).astype(int)
+                                - results[k].astype(int)).max()) for k, f in folders.items())
+    log(f"driver: second sweep {again}; third (skip_existing=False) edits (s) "
+        f"{json.dumps({k: round(third.get(f, -1.0), 3) for k, f in folders.items()})}, "
+        f"DDIM inversions {len(inverted)} (every trajectory read from the folder's "
+        f"{exp_io.INVERSION_CACHE_FILE}), results' max difference from the first sweep "
+        f"{rerun_diff} levels")
+    expect(again == {}, "driver: the second sweep skips all three folders")
+    expect(set(third) == set(folders.values()) and not inverted,
+           "driver: the third sweep reads every inversion from the cache")
+
+    exp = exp_io.read_exp(folders["editor"])
+    cfg = dataclasses.replace(driver.config_for_edit_type("geometry_editor"), **overrides)
+    direct = [EditSession(loaded, cfg).run(exp.input_image, exp.depth, exp.input_mask,
+                                           exp.transform).edited_image for _ in range(2)]
+    d_sweep = int(np.abs(direct[0].astype(int) - results["editor"].astype(int)).max())
+    d_self = int(np.abs(direct[0].astype(int) - direct[1].astype(int)).max())
+    log(f"driver: editor folder's result vs a direct EditSession.run: max {d_sweep} uint8 "
+        f"levels (bound {DRIVER_EDIT_LEVELS}); two direct runs differ by {d_self}")
+    expect(d_sweep <= DRIVER_EDIT_LEVELS, "driver: the sweep's editor result")
+    del loaded
+
+    # the command line a user runs, in a process of its own: the first
+    # folder again (Removal sorts first), its weights from the checkpoint
+    pkg_root = str(pathlib.Path(driver.__file__).resolve().parents[2])
+    cmd = [sys.executable, "-m", "geodiffuser_tpu_torch.parallel.driver", root,
+           "--checkpoint-dir", ckpt, "--steps", str(args.steps), "--size", str(SIZE),
+           "--no-skip-existing", "--limit", "1"]
+    t0 = time.time()
+    cli = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=pkg_root,
+                         env=dict(os.environ, PYTHONPATH=pkg_root))
+    out = cli.stdout.strip().splitlines()
+    log(f"driver command line (python -m geodiffuser_tpu_torch.parallel.driver ... "
+        f"--checkpoint-dir ... --limit 1): exit {cli.returncode} in {time.time() - t0:.1f} s, "
+        f"{out[-1] if out else cli.stderr[-2000:]}")
+    expect(cli.returncode == 0 and out and json.loads(out[-1])["edits"] == 1,
+           "driver: the command line sweeps one folder")
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    return launches, shapes, root
+
+
+# ---------------------------------------------------------------------------
+# The evaluation package
+# ---------------------------------------------------------------------------
+
+# noise draws a image of the phase's MD call (the CLI's default, the
+# reference's ensemble of 8)
+EVAL_ENSEMBLE = 8
+# one bf16 DIFT draw through the flash kernels against the same draw with
+# the plain version: each attention layer's outputs may differ by a bf16
+# rounding step (2^-8 relative) where the two sum in another order, and the
+# random-weight UNet carries that on through the 16 layers before the tap
+# (the SD-1.4 UNet check's eps differs by 1.3e-2 of its largest value,
+# check_unet_flash).  MD reads each location's feature direction, held by
+# its cosine similarity as the UNet check holds the gradient's; the relative
+# RMS difference guards against a gross error (a wrong scale or padding
+# gives differences of order 1)
+DIFT_TOL = {"rel_rms": 5e-2, "min_cosine": 0.99}
+# the CLI runs of the phase, in one process: (name, arguments after
+# --exp_root/--path_1); "W" stands for the weights directory
+CLI_RUNS = (
+    ("md", ["--metric", "md", "--weights_dir", "W"]),
+    ("offline", ["--metric", "offline"]),
+    ("lpips", ["--metric", "lpips", "--weights_dir", "W"]),
+    ("clip", ["--metric", "clip", "--evaluation_type", "3D", "--weights_dir", "W"]),
+    ("fid", ["--metric", "fid", "--weights_dir", "W"]),
+    ("pairwise", ["--metric", "clip", "--weights_dir", "W"]),
+)
+# runs each argument list of argv[1] as `python -m geodiffuser_tpu_torch.evaluation`
+# does (runpy, as __main__) and exits with the largest exit code
+CLI_SCRIPT = r"""
+import json, runpy, sys
+codes = []
+for argv in json.loads(sys.argv[1]):
+    sys.argv = ["geodiffuser_tpu_torch.evaluation"] + argv
+    try:
+        runpy.run_module("geodiffuser_tpu_torch.evaluation", run_name="__main__", alter_sys=True)
+        codes.append(0)
+    except SystemExit as exc:
+        codes.append(exc.code if isinstance(exc.code, int) else 1)
+import torch
+print(json.dumps({"exit_codes": codes,
+                  "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}))
+sys.exit(max(codes))
+"""
+
+
+def write_lpips_clip_weights(root: str, seed: int) -> None:
+    """Random weights in the published layouts: torchvision AlexNet and the
+    lpips linear heads as .pth (torch.save), the CLIP ViT-B/32 vision tower
+    as fp16 safetensors with its unused position_ids, held against the
+    copied manifest."""
+    import torch
+
+    from geodiffuser_tpu_torch.evaluation import lpips
+    from geodiffuser_tpu_torch.models import weights
+    from geodiffuser_tpu_torch.models.clip_vision import CLIPVisionEncoder
+
+    g = torch.Generator().manual_seed(seed)
+    alex = {}
+    for idx, (cin, cout, k, _, _) in lpips.ALEX_CONVS.items():
+        alex[f"features.{idx}.weight"] = (torch.randn(cout, cin, k, k, generator=g)
+                                          * (2.0 / (cin * k * k)) ** 0.5)
+        alex[f"features.{idx}.bias"] = torch.zeros(cout)
+    lin = {f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1, generator=g) * 0.1
+           for i, c in enumerate(lpips.ALEX_CHANNELS)}
+    torch.save(alex, os.path.join(root, "alexnet.pth"))
+    torch.save(lin, os.path.join(root, "lpips_alex.pth"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        tower = CLIPVisionEncoder()
+    tensors = {k: v.to(torch.float16) for k, v in tower.state_dict().items()}
+    tensors["vision_model.embeddings.position_ids"] = torch.arange(50)[None]
+    path = os.path.join(root, "clip_vision.safetensors")
+    write_safetensors(path, tensors)
+    with open(weights.MANIFESTS / weights.CLIP_VISION_MANIFEST) as f:
+        want = {k: tuple(v) for k, v in json.load(f)["keys"].items()}
+    expect(safetensors_shapes(path) == want, "clip_vision.safetensors keys and shapes")
+
+
+def check_cli_outputs(outs: dict) -> None:
+    """What each CLI run must have written: finite numbers under the keys
+    the metric gives on the driver's editor, remover and stitch folders."""
+    md_keys = {"Translation_3D/ours", "stitch/ours"}   # md skips Removal
+    all_keys = md_keys | {"Removal/ours"}
+    towers = {"psnr", "ssim", "lpips", "if", "clip_sim"}
+    want = {"md": (md_keys, {"md", "warp_l1", "ssim", "bg_psnr", "bg_l1"}),
+            "offline": (all_keys, {"warp_l1", "ssim", "bg_psnr", "bg_l1"}),
+            "lpips": (all_keys, towers), "clip": ({"Translation_3D/ours"}, towers),
+            "fid": ({"ours"}, {"fid"}), "pairwise": ({"pairwise"}, towers)}
+    for name, (keys, fields) in want.items():
+        got = outs[name]
+        ok = set(got) == keys and all(set(v) == fields and all(math.isfinite(x)
+                                                               for x in v.values())
+                                      for v in got.values())
+        expect(ok, f"evaluation CLI --metric {name}: {got}")
+
+
+def run_evaluation(args, card: str, tmp: str, root: str):
+    """The evaluation package at full SD-2.1 geometry, 512^2, bf16: the
+    random pipeline written as an fp16 checkpoint and loaded back
+    bit-equal, one DIFT draw through the kernels against the plain
+    version, `mean_distance_metric` on the scene against the driver's
+    edited editor folder with every launch count set to 0 just before and
+    read just after, then the CLI in a process of its own.  Returns
+    (launches, launches by shape)."""
+    import torch
+
+    from geodiffuser_tpu_torch.config import ModelConfig
+    from geodiffuser_tpu_torch.core.pipeline import Pipeline
+    from geodiffuser_tpu_torch.evaluation import dift
+    from geodiffuser_tpu_torch.evaluation.__main__ import _transform_field
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+    from geodiffuser_tpu_torch.utils import exp_io, png
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig.sd21()
+    ckpt = os.path.join(tmp, "sd21")
+    t0 = time.time()
+    pipe = Pipeline.create(cfg, image_size=SIZE, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    create_s = time.time() - t0
+    t0 = time.time()
+    sources, n_bytes = write_checkpoint(pipe, ckpt)
+    write_lpips_clip_weights(ckpt, args.seed)
+    del pipe
+    write_s = time.time() - t0
+    t0 = time.time()
+    loaded = Pipeline.create(cfg, image_size=SIZE, checkpoint_dir=ckpt, seed=args.seed + 1,
+                             device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    unequal = unequal_tensors(loaded, sources)
+    n_tensors = sum(len(s) for s in sources.values())
+    del sources
+    log(f"evaluation checkpoint (SD-2.1, random init {create_s:.2f} s): {n_bytes} bytes of "
+        f"fp16 safetensors written in {write_s:.2f} s (then the LPIPS and CLIP weights), "
+        f"loaded by Pipeline.create("
+        f"ModelConfig.sd21(), checkpoint_dir=...) in {load_s:.2f} s; {n_tensors} tensors, "
+        f"{len(unequal)} not bit-equal to the fp16 source cast to bf16 {unequal[:4]}")
+    expect(not unequal, "evaluation: loaded weights bit-equal to the fp16 sources cast to bf16")
+
+    image, _, mask = build_scene(SIZE)
+    folder = os.path.join(root, "Translation_3D", "0")
+    edited = png.read_png(os.path.join(folder, "result_ls.png"))
+    t_coords, _ = _transform_field(exp_io.read_exp(folder), torch.device("cuda"))
+    feat = dift.SDFeaturizer(loaded, ensemble=EVAL_ENSEMBLE, seed=args.seed)
+
+    # one draw through the kernels and with the plain version (not counted)
+    latent = loaded.encode_image(torch.as_tensor(image.astype(np.float32) / 255.0,
+                                                 device="cuda"))
+    ctx = loaded.encode_text([""])
+    noise = torch.randn(latent.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(args.seed))
+    f_kernel = feat.features(latent, ctx, noise, feat.t).float()
+    kernel = fa.flash_attention
+    fa.flash_attention = fa.attention_plain
+    try:
+        f_plain = feat.features(latent, ctx, noise, feat.t).float()
+    finally:
+        fa.flash_attention = kernel
+    rms = float((f_kernel - f_plain).norm() / f_plain.norm())
+    cos = float(torch.nn.functional.cosine_similarity(f_kernel, f_plain, dim=-1).min())
+    log(f"evaluation: one DIFT draw {tuple(f_kernel.shape)} through the flash kernels vs the "
+        f"plain version: rel RMS diff {rms:.2e}, least cosine over locations {cos:.5f}, max "
+        f"rel err {rel_err(f_kernel, f_plain):.2e} (tol {DIFT_TOL})")
+    expect(rms <= DIFT_TOL["rel_rms"] and cos >= DIFT_TOL["min_cosine"]
+           and bool(torch.isfinite(f_kernel).all()), "evaluation: DIFT draw")
+
+    for counts in launch_counts():
+        counts.update(dict.fromkeys(counts, 0))
+    fa.SHAPES.clear()
+    rc.SHAPES.clear()
+    t0 = time.time()
+    md, n_kp = dift.mean_distance_metric(feat, image, edited, mask, t_coords)
+    torch.cuda.synchronize()
+    md_s = time.time() - t0
+    launches = {k: v for counts in launch_counts() for k, v in counts.items()}
+    shapes = {**fa.SHAPES, **rc.SHAPES}
+    log(f"evaluation MD (SD-2.1 DIFT, {SIZE}^2, {EVAL_ENSEMBLE} draws an image): {md:.3f} px "
+        f"over {n_kp} keypoints, {md_s:.2f} s")
+    log(f"evaluation: kernel launches {launches}")
+    log(f"evaluation: flash and corr launches by shape {shape_counts(shapes)}")
+    expect(math.isfinite(md) and n_kp > 0, "evaluation: a finite MD over keypoints")
+    for shape in DIFT_FLASH_SHAPES:
+        n = shapes.get(("flash_fwd", *shape), 0)
+        expect(n > 0, f"evaluation: flash_fwd launched {n} times at {shape}")
+    del loaded, feat, latent, ctx, noise, f_kernel, f_plain
+    torch.cuda.empty_cache()
+
+    # the command line a user runs, in a process of its own
+    pair = [os.path.join(tmp, "path_1"), os.path.join(tmp, "path_2")]
+    for d in pair:
+        os.makedirs(d)
+    for cat, exp_folder in exp_io.list_experiments(root):
+        shutil.copy(os.path.join(exp_folder, "input_image.png"),
+                    os.path.join(pair[0], f"{cat}.png"))
+        shutil.copy(os.path.join(exp_folder, "result_ls.png"), os.path.join(pair[1], f"{cat}.png"))
+    outs = {name: os.path.join(tmp, f"eval_{name}.json") for name, _ in CLI_RUNS}
+    argvs = [(["--path_1", pair[0], "--path_2", pair[1]] if name == "pairwise"
+              else ["--exp_root", root]) + [ckpt if a == "W" else a for a in argv]
+             + ["--output", outs[name]] for name, argv in CLI_RUNS]
+    pkg_root = str(pathlib.Path(dift.__file__).resolve().parents[2])
+    t0 = time.time()
+    cli = subprocess.run([sys.executable, "-c", CLI_SCRIPT, json.dumps(argvs)],
+                         capture_output=True, text=True, timeout=600, cwd=pkg_root,
+                         env=dict(os.environ, PYTHONPATH=pkg_root))
+    cli_s = time.time() - t0
+    lines = cli.stdout.strip().splitlines()
+    log(f"evaluation command line (python -m geodiffuser_tpu_torch.evaluation, "
+        f"{' / '.join(n for n, _ in CLI_RUNS)}): exit {cli.returncode} in {cli_s:.1f} s, "
+        f"{lines[-1] if lines else ''}")
+    for line in lines[:-1]:
+        if not line.startswith("[INFO] wrote"):
+            log(f"evaluation cli: {line}")
+    if cli.returncode != 0:
+        log(cli.stderr[-3000:])
+    expect(cli.returncode == 0, "evaluation: the command line exits 0")
+    results = {}
+    for name, path in outs.items():
+        with open(path) as f:
+            results[name] = json.load(f)
+    check_cli_outputs(results)
+    log(f"evaluation phase: {time.time() - t_phase:.1f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (this process); {card}")
     return launches, shapes
 
 
@@ -1423,9 +1680,12 @@ def main(argv=None) -> int:
     for path in ("editor1024", "remover1024"):
         runs[path] = run_path(args, large, path)[:2]
     del large
-    t0 = time.time()
-    runs["driver"] = run_driver(args, pipe, card)
-    log(f"driver phase: {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        launches, shapes, root = run_driver(args, pipe, card, tmp)
+        runs["driver"] = (launches, shapes)
+        log(f"driver phase: {time.time() - t0:.1f} s")
+        runs["evaluation"] = run_evaluation(args, card, tmp, root)
     by_path = {path: launches for path, (launches, _) in runs.items()}
     timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
              | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES}

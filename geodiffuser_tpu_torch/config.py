@@ -104,17 +104,23 @@ class EditConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """SD-1.x architecture (defaults: SD-1.4/1.5).  `dtype` is both the
-    weight and the activation type of the port's modules."""
+    """SD-1.x architecture (defaults: SD-1.4/1.5); `sd21()` gives SD-2.1's.
+    `dtype` is both the weight and the activation type of the port's
+    modules."""
 
     in_channels: int = 4
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     num_attention_heads: int = 8
+    # SD-2.x per-down-block head counts (diffusers attention_head_dim list,
+    # (5, 10, 20, 20) = 64-wide heads); None: num_attention_heads everywhere
+    attention_head_dims: Optional[Tuple[int, ...]] = None
     cross_attention_dim: int = 768
     transformer_layers_per_block: int = 1
     norm_num_groups: int = 32
+    # SD-2.x Transformer2DModel: Linear proj_in/proj_out; SD-1.x: 1x1 convs
+    use_linear_projection: bool = False
     vae_block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     vae_layers_per_block: int = 2
     vae_latent_channels: int = 4
@@ -124,7 +130,41 @@ class ModelConfig:
     text_layers: int = 12
     text_heads: int = 12
     text_max_length: int = 77
+    text_hidden_act: str = "quick_gelu"   # SD-2.x OpenCLIP: "gelu" (exact erf)
     dtype: torch.dtype = torch.bfloat16
+
+    def heads_for_block(self, block_idx: int) -> int:
+        if self.attention_head_dims is not None:
+            return self.attention_head_dims[block_idx]
+        return self.num_attention_heads
+
+    @staticmethod
+    def sd21() -> "ModelConfig":
+        """stabilityai/stable-diffusion-2-1: 64-wide heads ((5, 10, 20, 20)
+        per block), Linear transformer projections, the OpenCLIP ViT-H text
+        tower (1024 wide, 23 layers: the penultimate layer, gelu).  The
+        model of the DIFT featurizer behind the MD metric
+        (evaluation/dift.py)."""
+        return ModelConfig(
+            attention_head_dims=(5, 10, 20, 20),
+            cross_attention_dim=1024,
+            use_linear_projection=True,
+            text_hidden_size=1024,
+            text_layers=23,
+            text_heads=16,
+            text_hidden_act="gelu",
+        )
+
+    @staticmethod
+    def tiny_sd21() -> "ModelConfig":
+        """A miniature SD-2.x config (per-block heads, Linear projections,
+        gelu) for CPU tests (same values as the JAX one)."""
+        return dataclasses.replace(
+            ModelConfig.tiny(),
+            attention_head_dims=(1, 2, 2, 2),
+            use_linear_projection=True,
+            text_hidden_act="gelu",
+        )
 
     @staticmethod
     def tiny() -> "ModelConfig":

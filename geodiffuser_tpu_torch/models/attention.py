@@ -88,23 +88,32 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """GN -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out + residual
-    (SD-1.x Transformer2DModel) on NCHW tensors."""
+    """GN -> proj_in -> transformer blocks -> proj_out + residual on NCHW
+    tensors (diffusers Transformer2DModel).  SD-1.x projects with 1x1
+    convs before the reshape to tokens; SD-2.x (`use_linear_projection`)
+    reshapes to tokens first and projects with Linear layers."""
 
     def __init__(self, channels: int, heads: int, cross_attention_dim: int,
-                 num_layers: int = 1, groups: int = 32):
+                 num_layers: int = 1, groups: int = 32, use_linear_projection: bool = False):
         super().__init__()
+        self.use_linear_projection = use_linear_projection
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        proj = (lambda: nn.Linear(channels, channels)) if use_linear_projection else \
+            (lambda: nn.Conv2d(channels, channels, 1))
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, heads, cross_attention_dim) for _ in range(num_layers)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x, context, edit: Optional[EditState] = None, acc=None):
         b, c, h, w = x.shape
-        y = self.proj_in(self.norm(x))
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.norm(x)
+        if self.use_linear_projection:
+            y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            y = self.proj_in(y).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             y = block(y, context, edit, acc)
-        y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(y) + x
+        if self.use_linear_projection:
+            return self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+        return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x

@@ -1,8 +1,9 @@
 """CLIP text encoder (openai/clip-vit-large-patch14) in PyTorch.
 
 Counterpart of `geodiffuser_tpu/models/clip_text.py`: pre-LN causal
-transformer, quick_gelu MLP, learned positions, final LayerNorm, final-layer
-hidden states.  Parameter names follow HF CLIPTextModel (`text_model.…`).
+transformer, quick_gelu MLP (SD-1.x) or exact gelu (SD-2.x's OpenCLIP
+tower), learned positions, final LayerNorm, final-layer hidden states.
+Parameter names follow HF CLIPTextModel (`text_model.…`).
 """
 
 from __future__ import annotations
@@ -38,23 +39,28 @@ class CLIPAttention(nn.Module):
         return self.out_proj(out)
 
 
+ACTIVATIONS = {"quick_gelu": quick_gelu,
+               "gelu": lambda x: torch.nn.functional.gelu(x, approximate="none")}
+
+
 class _MLP(nn.Module):
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, hidden_act: str = "quick_gelu"):
         super().__init__()
         self.fc1 = nn.Linear(hidden, hidden * 4)
         self.fc2 = nn.Linear(hidden * 4, hidden)
+        self.act = ACTIVATIONS[hidden_act]
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int, hidden_act: str = "quick_gelu"):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden, eps=1e-5)
         self.self_attn = CLIPAttention(hidden, heads)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=1e-5)
-        self.mlp = _MLP(hidden)
+        self.mlp = _MLP(hidden, hidden_act)
 
     def forward(self, x, mask):
         x = x + self.self_attn(self.layer_norm1(x), mask)
@@ -71,7 +77,8 @@ class _Embeddings(nn.Module):
 class _Encoder(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
-        self.layers = nn.ModuleList([CLIPEncoderLayer(config.text_hidden_size, config.text_heads)
+        self.layers = nn.ModuleList([CLIPEncoderLayer(config.text_hidden_size, config.text_heads,
+                                                      config.text_hidden_act)
                                      for _ in range(config.text_layers)])
 
 

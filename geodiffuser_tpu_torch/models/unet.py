@@ -1,11 +1,15 @@
-"""SD-1.x UNet2DConditionModel in PyTorch, diffusers parameter names.
+"""SD-1.x / SD-2.x UNet2DConditionModel in PyTorch, diffusers parameter names.
 
 Counterpart of `geodiffuser_tpu/models/unet.py` (the model the reference
 drives through diffusers, diffusion.py:99-150): conv_in; down
 CrossAttnDownBlock2D x3 + DownBlock2D; mid UNetMidBlock2DCrossAttn; up
 UpBlock2D + CrossAttnUpBlock2D x3; conv_norm_out/conv_out; 16 transformer
-blocks = 32 attention layers.  The public forward keeps the JAX package's
-NHWC layout: (S, H, W, 4) in, (S, H, W, 4) float32 out.
+blocks = 32 attention layers.  SD-2.x takes its heads per block
+(`ModelConfig.heads_for_block`) and Linear transformer projections.  The
+public forward keeps the JAX package's NHWC layout: (S, H, W, 4) in,
+(S, H, W, 4) float32 out; with `features=True` also each up block's output
+before its upsampler (the JAX package's `features` collection, the DIFT
+featurizer's taps).
 """
 
 from __future__ import annotations
@@ -50,9 +54,11 @@ class UNet2DCondition(nn.Module):
         g = config.norm_num_groups
         temb_ch = chans[0] * 4
 
-        def attn(ch):
-            return Transformer2DModel(ch, config.num_attention_heads, config.cross_attention_dim,
-                                      config.transformer_layers_per_block, g)
+        def attn(ch, block_idx):
+            return Transformer2DModel(ch, config.heads_for_block(block_idx),
+                                      config.cross_attention_dim,
+                                      config.transformer_layers_per_block, g,
+                                      config.use_linear_projection)
 
         self.time_embedding = TimestepEmbedding(chans[0], temb_ch)
         self.conv_in = nn.Conv2d(config.in_channels, chans[0], 3, padding=1)
@@ -63,7 +69,7 @@ class UNet2DCondition(nn.Module):
             for _ in range(config.layers_per_block):
                 resnets.append(ResnetBlock2D(x_ch, ch, g, temb_ch))
                 if i < n - 1:
-                    attns.append(attn(ch))
+                    attns.append(attn(ch, i))
                 x_ch = ch
                 skip_chs.append(ch)
             ds = [Downsample2D(ch)] if i < n - 1 else None
@@ -73,14 +79,14 @@ class UNet2DCondition(nn.Module):
         self.down_blocks = nn.ModuleList(down)
         self.mid_block = _Block([ResnetBlock2D(chans[-1], chans[-1], g, temb_ch),
                                  ResnetBlock2D(chans[-1], chans[-1], g, temb_ch)],
-                                [attn(chans[-1])])
+                                [attn(chans[-1], n - 1)])
         up = []
         for i, ch in enumerate(reversed(chans)):
             resnets, attns = [], []
             for _ in range(config.layers_per_block + 1):
                 resnets.append(ResnetBlock2D(x_ch + skip_chs.pop(), ch, g, temb_ch))
                 if i > 0:
-                    attns.append(attn(ch))
+                    attns.append(attn(ch, n - 1 - i))
                 x_ch = ch
             us = [Upsample2D(ch)] if i < n - 1 else None
             up.append(_Block(resnets, attns, upsamplers=us))
@@ -92,9 +98,11 @@ class UNet2DCondition(nn.Module):
                 module.tap_key = name
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
-                edit=None, acc=None) -> torch.Tensor:
+                edit=None, acc=None, features: bool = False):
         """sample (S, H, W, 4) NHWC, timestep int or (S,), context (S, 77, C);
-        `edit`/`acc` as in models/attention.py."""
+        `edit`/`acc` as in models/attention.py.  With `features`, returns
+        (eps, {"up_block_i": (S, h, w, C) NHWC}) where up_block_i is up block
+        i's output before its upsampler."""
         dtype = self.conv_in.weight.dtype
         s = sample.shape[0]
         t = torch.as_tensor(timestep, device=sample.device).expand(s)
@@ -118,13 +126,17 @@ class UNet2DCondition(nn.Module):
         x = mid.attentions[0](x, context, edit, acc)
         x = mid.resnets[1](x, temb)
 
-        for block in self.up_blocks:
+        taps = {}
+        for i, block in enumerate(self.up_blocks):
             for j, resnet in enumerate(block.resnets):
                 x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
                 if hasattr(block, "attentions"):
                     x = block.attentions[j](x, context, edit, acc)
+            if features:
+                taps[f"up_block_{i}"] = x.permute(0, 2, 3, 1)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return x.permute(0, 2, 3, 1).float()
+        eps = x.permute(0, 2, 3, 1).float()
+        return (eps, taps) if features else eps

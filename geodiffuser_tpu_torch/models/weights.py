@@ -13,7 +13,9 @@ diffusion.py:107):
 each file falling back to its `.bin` (`torch.load(weights_only=True)`).  The
 port's modules carry the diffusers/HF names, so a checkpoint's state_dict
 loads as it is: the keys `models/manifests/*.json` mark `unconsumed` are
-dropped, the rest must match the module's keys and shapes exactly.  The
+dropped (SD-1.x's or SD-2.1's manifests, by the configuration:
+`components`), the rest must match the module's keys and shapes exactly.
+`convert_clip_vision` does the same for the CLIP ViT-B/32 vision tower.  The
 safetensors format is read here with `json` and numpy (an 8-byte
 little-endian header length, a JSON header, raw little-endian data).
 
@@ -130,12 +132,25 @@ def from_jax_params(params_np: dict, config: ModelConfig) -> Dict[str, Dict[str,
 # ---------------------------------------------------------------------------
 
 MANIFESTS = pathlib.Path(__file__).resolve().parent / "manifests"
-# component -> (file in the checkpoint directory, manifest)
+# component -> (file in the checkpoint directory, manifest): SD-1.x
 COMPONENTS = {
     "unet": ("unet/diffusion_pytorch_model.safetensors", "sd14_unet.json"),
     "vae": ("vae/diffusion_pytorch_model.safetensors", "sd_vae.json"),
     "text": ("text_encoder/model.safetensors", "sd14_text_encoder.json"),
 }
+# SD-2.1 (stabilityai/stable-diffusion-2-1): the same files and VAE
+COMPONENTS_SD21 = dict(
+    COMPONENTS,
+    unet=(COMPONENTS["unet"][0], "sd21_unet.json"),
+    text=(COMPONENTS["text"][0], "sd21_text_encoder.json"),
+)
+CLIP_VISION_MANIFEST = "clip_vision_vitb32.json"
+
+
+def components(config: ModelConfig) -> dict:
+    """The checkpoint files and manifests of `config`'s architecture:
+    SD-2.x (Linear transformer projections) or SD-1.x."""
+    return COMPONENTS_SD21 if config.use_linear_projection else COMPONENTS
 # safetensors dtype -> little-endian numpy dtype; BF16 is read as its bits
 SAFETENSORS_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "BF16": "<u2",
@@ -222,7 +237,7 @@ def load_sd_checkpoint(checkpoint_dir: str, pipeline: "Pipeline") -> Dict[str, D
     before any is loaded.  Returns the state_dicts as read (CPU, stored
     dtypes)."""
     states = {}
-    for name, (rel, manifest) in COMPONENTS.items():
+    for name, (rel, manifest) in components(pipeline.config).items():
         state = read_state(_component_path(checkpoint_dir, rel))
         drop = unconsumed_keys(manifest)
         states[name] = {k: v for k, v in state.items() if k not in drop}
@@ -249,3 +264,14 @@ def load_vae_override(vae_dir: str, pipeline: "Pipeline") -> Dict[str, torch.Ten
     check_state_dict(pipeline.vae, state, "vae-override")
     pipeline.load_state_dicts({"vae": state})
     return state
+
+
+def convert_clip_vision(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An HF CLIPVisionModel(WithProjection) state_dict (ViT-B/32:
+    `vision_model.…` and `visual_projection.weight`) as the port's
+    `CLIPVisionEncoder` takes it: the keys the manifest marks `unconsumed`
+    (the `position_ids` buffer) dropped; the port's module carries the HF
+    names.  Counterpart of the JAX `convert_clip_vision`."""
+    drop = unconsumed_keys(CLIP_VISION_MANIFEST)
+    return {k: v for k, v in state.items() if k not in drop}
+

@@ -1,13 +1,17 @@
-"""PNG files and PIL's bicubic resize, with the standard library and numpy.
+"""PNG files and PIL's resizes, with the standard library and numpy.
 
 The experiment folders hold 8-bit PNGs (`utils/exp_io.py`).  `read_png`
 decodes 8-bit non-interlaced gray, gray+alpha, RGB and RGBA files into the
 array PIL's `np.asarray(Image.open(path))` gives (gray (H, W), the others
 (H, W, C)); `write_png` stores 8-bit gray or RGB arrays (filter 0, zlib).
-`resize_bicubic` follows Pillow's `Image.resize(size)` for 8-bit images
-(Resample.c: the a = -0.5 cubic widened by the reduction factor,
-coefficients normalised per output pixel and rounded to 22 fraction bits,
-a horizontal pass into an 8-bit image, then a vertical pass).
+`resize_bicubic` and `resize_bilinear` follow Pillow's `Image.resize(size)`
+(bicubic, its default) and `Image.resize(size, Image.BILINEAR)` for 8-bit
+images (Resample.c: the a = -0.5 cubic or the triangle, widened by the
+reduction factor, coefficients normalised per output pixel and rounded to
+22 fraction bits, a horizontal pass into an 8-bit image, then a vertical
+pass); `resize_nearest` follows `Image.resize(size, Image.NEAREST)`
+(Geometry.c's affine scale: source index int((x + 0.5) * in / out), the
+position accumulated in double precision).
 """
 
 from __future__ import annotations
@@ -136,12 +140,22 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int):
+def _triangle(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# Pillow's filters: (function, support)
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_triangle, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int, kind: str = "bicubic"):
     """Per output pixel: the first input index, and fixed-point weights over
     a window of `ksize` inputs (zero past the image)."""
+    fn, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     first = np.zeros(out_size, np.int64)
     weights = np.zeros((out_size, ksize), np.int64)
@@ -149,7 +163,7 @@ def _coefficients(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _bicubic((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        w = fn((np.arange(xmax) + xmin - center + 0.5) / filterscale)
         total = w.sum()
         if total != 0.0:
             w = w / total
@@ -159,11 +173,11 @@ def _coefficients(in_size: int, out_size: int):
     return first, weights
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
     """One pass along `axis` of an (H, W, C) uint8 image, rounded and
     clipped to 8 bits as Pillow does between its passes."""
     in_size = img.shape[axis]
-    first, weights = _coefficients(in_size, out_size)
+    first, weights = _coefficients(in_size, out_size, kind)
     ksize = weights.shape[1]
     src = np.moveaxis(img.astype(np.int64), axis, 0)
     src = np.concatenate([src, np.zeros((ksize,) + src.shape[1:], np.int64)], axis=0)
@@ -175,15 +189,38 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize_bicubic(image: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Pillow's `Image.fromarray(image).resize((width, height))` (bicubic)
-    of a uint8 (H, W) or (H, W, C) array."""
+def _resize(image: np.ndarray, height: int, width: int, kind: str) -> np.ndarray:
     img = np.asarray(image, np.uint8)
     squeeze = img.ndim == 2
     if squeeze:
         img = img[..., None]
     if img.shape[1] != width:
-        img = _resample_axis(img, width, 1)
+        img = _resample_axis(img, width, 1, kind)
     if img.shape[0] != height:
-        img = _resample_axis(img, height, 0)
+        img = _resample_axis(img, height, 0, kind)
     return img[..., 0] if squeeze else img
+
+
+def resize_bicubic(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Pillow's `Image.fromarray(image).resize((width, height))` (bicubic)
+    of a uint8 (H, W) or (H, W, C) array."""
+    return _resize(image, height, width, "bicubic")
+
+
+def resize_bilinear(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Pillow's `Image.fromarray(image).resize((width, height),
+    Image.BILINEAR)` of a uint8 (H, W) or (H, W, C) array."""
+    return _resize(image, height, width, "bilinear")
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    step = in_size / out_size
+    pos = np.cumsum(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+    return np.minimum(pos.astype(np.int64), in_size - 1)
+
+
+def resize_nearest(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Pillow's `Image.fromarray(image).resize((width, height),
+    Image.NEAREST)` of a uint8 (H, W) or (H, W, C) array."""
+    img = np.asarray(image, np.uint8)
+    return img[_nearest_index(img.shape[0], height)][:, _nearest_index(img.shape[1], width)]

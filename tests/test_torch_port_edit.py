@@ -7,6 +7,8 @@ package routes attention through vanilla math and the removal correlation
 through `_corr_xla` (`_on_tpu()` is False); that is the reference here.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -38,10 +40,19 @@ def _t(x):
     return torch.from_numpy(np.array(x, np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def tiny_pipeline(image_size: int):
+    """The JAX package's `Pipeline.create(ModelConfig.tiny())` (seed 0) and
+    its parameters as numpy trees, once a process for each image size: the
+    edit, remover and stitch files share it (its jitted inits are the
+    costliest compiles of their set-up)."""
+    jp = JPipeline.create(JModelConfig.tiny(), image_size=image_size)
+    return jp, jax.tree.map(np.asarray, jp.params)
+
+
 @pytest.fixture(scope="module")
 def pipes():
-    jp = JPipeline.create(JModelConfig.tiny(), image_size=SIZE)
-    params = jax.tree.map(np.asarray, jp.params)
+    jp, params = tiny_pipeline(SIZE)
     tp = Pipeline.create(ModelConfig.tiny(), image_size=SIZE, device="cpu")
     tp.load_state_dicts(from_jax_params(params, ModelConfig.tiny()))
     return jp, tp

@@ -25,12 +25,16 @@ import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors"))
 print(len(names), bad)
-assert len(names) >= 21, names
+assert len(names) >= 31, names
 assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.editor",
         "geodiffuser_tpu_torch.core.edit_attention", "geodiffuser_tpu_torch.core.inversion",
         "geodiffuser_tpu_torch.utils.exp_io", "geodiffuser_tpu_torch.utils.png",
         "geodiffuser_tpu_torch.native.loader", "geodiffuser_tpu_torch.parallel.driver",
-        "geodiffuser_tpu_torch.parallel.sharding"} <= set(names), names
+        "geodiffuser_tpu_torch.parallel.sharding", "geodiffuser_tpu_torch.models.clip_vision",
+        "geodiffuser_tpu_torch.evaluation.metrics", "geodiffuser_tpu_torch.evaluation.lpips",
+        "geodiffuser_tpu_torch.evaluation.fid", "geodiffuser_tpu_torch.evaluation.dift",
+        "geodiffuser_tpu_torch.evaluation.study", "geodiffuser_tpu_torch.evaluation.__main__",
+        "geodiffuser_tpu_torch.utils.attention_vis"} <= set(names), names
 assert not bad, bad
 """
 
@@ -50,11 +54,37 @@ bad = sorted(n for n in sys.modules
 assert not bad, bad
 """
 
+# the evaluation CLI run as `python -m` on the CPU (its argument errors
+# exit 2 after the imports): the whole package it reaches, and no PIL
+IMPORT_EVAL = r"""
+import runpy, sys
+sys.argv = ["geodiffuser_tpu_torch.evaluation", "--device", "cpu"]
+try:
+    runpy.run_module("geodiffuser_tpu_torch.evaluation", run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    assert exc.code == 2, exc.code
+import geodiffuser_tpu_torch.evaluation.dift, geodiffuser_tpu_torch.evaluation.fid
+import geodiffuser_tpu_torch.evaluation.lpips, geodiffuser_tpu_torch.evaluation.study
+import geodiffuser_tpu_torch.models.clip_vision, geodiffuser_tpu_torch.utils.attention_vis
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors"))
+assert not bad, bad
+"""
+
 
 def test_driver_path_imports_neither_jax_pil_nor_safetensors():
     """The batch driver, the native loader, the PNG codec and the checkpoint
     loader: no JAX, no JAX package, no PIL and no safetensors package."""
     out = subprocess.run([sys.executable, "-c", IMPORT_DRIVER], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_evaluation_imports_neither_jax_pil_nor_safetensors():
+    """The evaluation CLI and the modules it reaches (metrics, LPIPS, FID,
+    DIFT, the study tools, the CLIP vision tower, attention_vis): no JAX, no
+    JAX package, no PIL (the card's machine has none) and no safetensors."""
+    out = subprocess.run([sys.executable, "-c", IMPORT_EVAL], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
 

@@ -18,12 +18,10 @@ import jax
 import jax.numpy as jnp
 
 from geodiffuser_tpu.config import EditConfig as JEditConfig
-from geodiffuser_tpu.config import ModelConfig as JModelConfig
 from geodiffuser_tpu.core import edit_attention as jea
 from geodiffuser_tpu.core import edit_state as jes
 from geodiffuser_tpu.core import optimization as jopt
 from geodiffuser_tpu.core.editor import EditSession as JEditSession
-from geodiffuser_tpu.core.pipeline import Pipeline as JPipeline
 from geodiffuser_tpu.ops import camera as jcam
 from geodiffuser_tpu_torch.config import EditConfig, ModelConfig
 from geodiffuser_tpu_torch.core import edit_attention as tea
@@ -32,6 +30,7 @@ from geodiffuser_tpu_torch.core import optimization
 from geodiffuser_tpu_torch.core.editor import EditSession
 from geodiffuser_tpu_torch.core.pipeline import Pipeline
 from geodiffuser_tpu_torch.models.weights import from_jax_params
+from test_torch_port_edit import tiny_pipeline
 
 torch.set_num_threads(1)
 
@@ -47,8 +46,7 @@ def _t(x):
 
 @pytest.fixture(scope="module")
 def pipes():
-    jp = JPipeline.create(JModelConfig.tiny(), image_size=SIZE)
-    params = jax.tree.map(np.asarray, jp.params)
+    jp, params = tiny_pipeline(SIZE)
     tp = Pipeline.create(ModelConfig.tiny(), image_size=SIZE, device="cpu")
     tp.load_state_dicts(from_jax_params(params, ModelConfig.tiny()))
     return jp, tp

@@ -20,10 +20,8 @@ import jax
 import jax.numpy as jnp
 
 from geodiffuser_tpu.config import EditConfig as JEditConfig
-from geodiffuser_tpu.config import ModelConfig as JModelConfig
 from geodiffuser_tpu.core import editor as jeditor
 from geodiffuser_tpu.core import optimization as jopt
-from geodiffuser_tpu.core.pipeline import Pipeline as JPipeline
 from geodiffuser_tpu.kernels.splat import splat_image_fused
 from geodiffuser_tpu.ops import camera as jcam
 from geodiffuser_tpu.ops import splat as jsplat
@@ -32,6 +30,7 @@ from geodiffuser_tpu_torch.core import editor, optimization
 from geodiffuser_tpu_torch.core.pipeline import Pipeline
 from geodiffuser_tpu_torch.kernels import splat as ks
 from geodiffuser_tpu_torch.models.weights import from_jax_params
+from test_torch_port_edit import tiny_pipeline
 
 torch.set_num_threads(1)
 
@@ -241,9 +240,9 @@ def test_stitch_matches_jax(stitch_scene):
     test_torch_port_edit.test_edit_slice_matches_jax): loss logs, the
     stitch's adaptive sim weight, final latents, images and edited image."""
     bg, fg, mask, depth, transform = stitch_scene
-    jp = JPipeline.create(JModelConfig.tiny(), image_size=SIZE)
+    jp, params = tiny_pipeline(SIZE)
     tp = Pipeline.create(ModelConfig.tiny(), image_size=SIZE, device="cpu")
-    tp.load_state_dicts(from_jax_params(jax.tree.map(np.asarray, jp.params), ModelConfig.tiny()))
+    tp.load_state_dicts(from_jax_params(params, ModelConfig.tiny()))
     js = jeditor.EditSession(jp, JEditConfig(**STITCH, lr=0.0))
     decode = js._decode_bundle_fn()
     final = []   # the JAX run's final [base, edit] latents, as decoded
