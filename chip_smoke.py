@@ -49,7 +49,17 @@ Phases, each of which fails the run on error:
      (`python -m geodiffuser_tpu_torch.evaluation`: --metric md, offline,
      lpips, clip and fid on the driver's three folders and --path_1/--path_2,
      with random AlexNet/LPIPS .pth and CLIP ViT-B/32 weights) in a process
-     of its own;
+     of its own; then the UI server ("ui"): SAM ViT-H and Depth Anything
+     ViT-L at full width in float32 (random weights from --seed, their
+     encode, decode and depth times), `ui.serve.make_server` over the
+     resident SD-1.4 pipeline on a thread, and over HTTP a user's session:
+     state, load_image (PNG), two SAM clicks (equal bits), Depth Anything
+     depth, set_mask, load of the driver's editor folder, the preview, the
+     edit (a depth request answered while it runs) and the inpaint at
+     --steps, each with every launch count set to 0 just before and read
+     just after, save and load; the served edit and inpaint against direct
+     `EditSession.run`s (equal bits); tiny float32 SAM and Depth Anything on
+     the card against the CPU;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
 `--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
@@ -1528,6 +1538,221 @@ def run_evaluation(args, card: str, tmp: str, root: str):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# The UI server
+# ---------------------------------------------------------------------------
+
+# tiny float32 SAM and Depth Anything on the card against the CPU, the same
+# weights: float32 sums in another order (no TF32), relative to the largest
+# value of each output
+UI_TOL = 1e-4
+# the click: the scene object's centre (build_scene)
+UI_CLICK = dict(x=0.4, y=0.6)
+
+
+def png_b64(arr) -> str:
+    import base64
+
+    from geodiffuser_tpu_torch.utils import png
+
+    return base64.b64encode(png.encode_png(np.asarray(arr, np.uint8))).decode()
+
+
+def b64_png(data: str) -> np.ndarray:
+    import base64
+
+    from geodiffuser_tpu_torch.utils import png
+
+    return png.decode_png(base64.b64decode(data))
+
+
+def ui_request(base: str, name: str, body=None, timing: dict = None):
+    """POST /api/<name> (GET /api/state without a body); the JSON answer.
+    An error answer fails the phase; the seconds go to `timing`."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"{base}/api/{name}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = json.loads(r.read())
+    if timing is not None:
+        timing.setdefault(name, []).append(round(time.time() - t0, 3))
+    expect("error" not in out, f"ui: {name}: {out.get('error')}")
+    return out
+
+
+def check_ui_small(seed: int) -> None:
+    """Tiny float32 SAM and Depth Anything built on the CPU and copied to the
+    card: the image embedding, mask logits, IoU and relative depth on the
+    card against the CPU (UI_TOL)."""
+    import torch
+
+    from geodiffuser_tpu_torch.models.sam import SamConfig
+    from geodiffuser_tpu_torch.utils.depth import DepthAnythingPredictor
+    from geodiffuser_tpu_torch.utils.segmentation import SamPredictor
+
+    image, _, _ = build_scene(96)
+    pts, labels = np.array([[40.0, 55.0]]), np.array([1])
+    sams = {"cpu": SamPredictor(SamConfig.tiny(), device="cpu", seed=seed)}
+    sams["cuda"] = SamPredictor(SamConfig.tiny(), state_dict=sams["cpu"].model.state_dict())
+    das = {"cpu": DepthAnythingPredictor("tiny", device="cpu", seed=seed)}
+    das["cuda"] = DepthAnythingPredictor("tiny", state_dict=das["cpu"].model.state_dict())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sams[dev].set_image(image)
+        logits, iou = sams[dev].predict_logits(pts, labels)
+        out[dev] = [sams[dev]._embedding.cpu(), logits.cpu(), iou.cpu(),
+                    das[dev].relative_depth(image).cpu()]
+    errs = [rel_err(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    log(f"ui small reference (tiny fp32 SAM and Depth Anything, 96^2, card vs CPU): rel err "
+        f"embedding {errs[0]:.2e}, mask logits {errs[1]:.2e}, IoU {errs[2]:.2e}, depth "
+        f"{errs[3]:.2e} (tol {UI_TOL})")
+    expect(max(errs) <= UI_TOL and all(bool(torch.isfinite(t).all()) for t in out["cuda"]),
+           "ui small reference")
+
+
+def run_ui(args, pipe, card: str, tmp: str, root: str):
+    """The UI server over the resident SD-1.4 pipeline, with SAM ViT-H and
+    Depth Anything ViT-L at full width in float32 (random weights from
+    --seed): every request of a user's session over HTTP, the edit and the
+    inpaint with every launch count set to 0 just before and read just
+    after, a depth request running beside the edit; the edited and inpainted
+    images against direct EditSession.run calls (equal bits).  Returns
+    (launches, launches by shape) of the edit and inpaint together."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from geodiffuser_tpu_torch.core.editor import EditSession
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+    from geodiffuser_tpu_torch.models.sam import SamConfig
+    from geodiffuser_tpu_torch.ui import callbacks as cb
+    from geodiffuser_tpu_torch.ui import serve
+    from geodiffuser_tpu_torch.utils import depth as depth_utils
+    from geodiffuser_tpu_torch.utils.segmentation import SamPredictor
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sam = SamPredictor(SamConfig.vit_h(), device="cuda", seed=args.seed)
+    depth = depth_utils.DepthAnythingPredictor("vitl", device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    n_sam = sum(p.numel() for p in sam.model.parameters())
+    n_da = sum(p.numel() for p in depth.model.parameters())
+    log(f"ui models: SAM ViT-H {n_sam} and Depth Anything ViT-L {n_da} float32 parameters, "
+        f"random init seed {args.seed}: {time.time() - t0:.1f} s")
+
+    image, scene_depth, mask = build_scene(SIZE)
+    click = np.array([[SIZE * UI_CLICK["x"], SIZE * UI_CLICK["y"]]])
+    enc_ms = time_ms(lambda: sam.set_image(image), iters=3)
+    dec_ms = time_ms(lambda: sam.predict_logits(click, np.array([1])), iters=10)
+    da_ms = time_ms(lambda: depth.relative_depth(image), iters=3)
+    log(f"ui model times (512^2 scene, float32, no TF32; CUDA events around the calls, host "
+        f"work included): SAM encode (resize, normalize, pad to 1024^2, ViT-H) {enc_ms:.1f} ms, "
+        f"SAM decode (prompt, two-way decoder, mask upsampling) {dec_ms:.2f} ms, Depth "
+        f"Anything ViT-L (518^2) {da_ms:.1f} ms; {card}")
+
+    srv = serve.make_server(pipe, port=0, sam_predictor=sam, depth_predictor=depth)
+    app = srv.RequestHandlerClass.app
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    secs = {}
+    post = lambda name, body=None: ui_request(base, name, body, secs)
+    folder = os.path.join(root, "Translation_3D", "0")
+    adv = {"num_ddim_steps": args.steps}
+    inpaint_adv = dict(cb.REMOVER_ADVANCED_DEFAULTS, **adv)
+    runs = {}
+    try:
+        expect(post("state")["image"] is False, "ui: a fresh session has no image")
+        got = b64_png(post("load_image", {"image": "data:image/png;base64," + png_b64(image)})
+                      ["image"])
+        expect(np.array_equal(got, image), "ui: load_image at the working size keeps the image")
+        clicks = [b64_png(post("click", UI_CLICK)["mask"]) for _ in range(2)]
+        expect(clicks[0].shape == (SIZE, SIZE) and np.array_equal(clicks[0], clicks[1]),
+               "ui: two clicks give SAM masks of the image's shape with equal bits")
+        shown = b64_png(post("depth", {"model": "depth_anything",
+                                       "translate_factor": 0.7})["depth"])
+        expect(shown.shape == (SIZE, SIZE) and app.state.depth.shape == (SIZE, SIZE)
+               and bool(np.isfinite(app.state.depth).all()), "ui: a finite depth map")
+        got = b64_png(post("set_mask", {"mask": png_b64(mask * 255)})["mask"])
+        expect(np.array_equal(got > 127, mask > 0.5), "ui: set_mask")
+        post("load", {"folder": folder})
+        prev = b64_png(post("preview", EDITOR_TRANSFORM)["preview"])
+        expect(prev.shape == (SIZE, SIZE, 3) and prev.std() > 0, "ui: preview")
+        state = app.state
+        inputs = (state.image.copy(), state.depth.copy(), state.mask.copy(),
+                  state.transform.copy())
+
+        for name, body in (("edit", {"prompt": "", "advanced": adv}),
+                           ("inpaint", {"prompt": "", "advanced": inpaint_adv})):
+            for counts in launch_counts():
+                counts.update(dict.fromkeys(counts, 0))
+            fa.SHAPES.clear()
+            rc.SHAPES.clear()
+            out = {}
+            worker = threading.Thread(target=lambda: out.update(post(name, body)))
+            worker.start()
+            if name == "edit":   # a depth request while the edit runs
+                while worker.is_alive() and not ui_request(base, "state")["progress"]["running"]:
+                    time.sleep(0.01)
+                post("depth", {"model": "depth_anything", "translate_factor": 0.7})
+                beside = worker.is_alive()
+            worker.join(timeout=900)
+            torch.cuda.synchronize()
+            expect(not worker.is_alive() and "edited" in out, f"ui: {name} answered")
+            launches = {k: v for counts in launch_counts() for k, v in counts.items()}
+            runs[name] = (launches, {**fa.SHAPES, **rc.SHAPES}, b64_png(out["edited"]))
+            log(f"ui {name}: kernel launches {launches}")
+            log(f"ui {name}: flash and corr launches by shape {shape_counts(runs[name][1])}")
+            for k in ("flash_fwd", "flash_bwd", "corr_fwd", "corr_bwd"):
+                expect(launches[k] > 0, f"ui {name}: kernel {k} launched {launches[k]} times")
+        log(f"ui: a depth request answered while the edit ran (edit still running then: "
+            f"{beside})")
+        post("load", {"folder": folder})       # the scene's depth again
+
+        saved = post("save", {"root": os.path.join(tmp, "ui_saved"),
+                              "category": "Translation_3D"})["folder"]
+        loaded = post("load", {"folder": saved})
+        expect(np.array_equal(b64_png(loaded["image"]), image), "ui: save then load")
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            expect(b"toDataURL('image/png')" in r.read(), "ui: the page converts uploads")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    expect(not thread.is_alive(), "ui: the server thread stopped")
+    log(f"ui request seconds: {json.dumps(secs)}")
+
+    image_s, depth_s, mask_s, transform_s = inputs
+    cfg = cb.AdvancedOptions(**adv).to_edit_config("geometry_editor")
+    direct = EditSession(pipe, cfg).run(image_s, depth_s, mask_s, transform_s).edited_image
+    d_edit = int(np.abs(direct.astype(int) - runs["edit"][2].astype(int)).max())
+    cfg = cb.AdvancedOptions(**inpaint_adv).to_edit_config("geometry_remover")
+    direct = EditSession(pipe, cfg).run(image_s, depth_utils.constant_depth(SIZE, SIZE), mask_s,
+                                        np.eye(4)).edited_image
+    d_inpaint = int(np.abs(direct.astype(int) - runs["inpaint"][2].astype(int)).max())
+    log(f"ui: the served edit and inpaint vs direct EditSession.run: max {d_edit} / "
+        f"{d_inpaint} uint8 levels (bound {DRIVER_EDIT_LEVELS})")
+    expect(d_edit <= DRIVER_EDIT_LEVELS and d_inpaint <= DRIVER_EDIT_LEVELS,
+           "ui: served results equal direct runs")
+    del sam, depth, app, srv
+    torch.cuda.empty_cache()
+    check_ui_small(args.seed)
+    log(f"ui phase: {time.time() - t_phase:.1f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (this process); {card}")
+    launches = {k: runs["edit"][0][k] + runs["inpaint"][0][k] for k in runs["edit"][0]}
+    shapes = dict(runs["edit"][1])
+    for key, n in runs["inpaint"][1].items():
+        shapes[key] = shapes.get(key, 0) + n
+    return launches, shapes
+
+
 def small_reference(edit_type: str):
     """Tiny float32 edit on the card against the same edit on the CPU (the
     port's plain versions), from the same weights.  lr=0 keeps the step-0
@@ -1686,6 +1911,7 @@ def main(argv=None) -> int:
         runs["driver"] = (launches, shapes)
         log(f"driver phase: {time.time() - t0:.1f} s")
         runs["evaluation"] = run_evaluation(args, card, tmp, root)
+        runs["ui"] = run_ui(args, pipe, card, tmp, root)
     by_path = {path: launches for path, (launches, _) in runs.items()}
     timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
              | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES}

@@ -15,14 +15,18 @@ port's modules carry the diffusers/HF names, so a checkpoint's state_dict
 loads as it is: the keys `models/manifests/*.json` mark `unconsumed` are
 dropped (SD-1.x's or SD-2.1's manifests, by the configuration:
 `components`), the rest must match the module's keys and shapes exactly.
-`convert_clip_vision` does the same for the CLIP ViT-B/32 vision tower.  The
+`convert_clip_vision` does the same for the CLIP ViT-B/32 vision tower, and
+`read_perception_checkpoint` / `load_perception_model` for the published
+SAM and Depth Anything files (their unconsumed keys dropped by pattern).  The
 safetensors format is read here with `json` and numpy (an 8-byte
 little-endian header length, a JSON header, raw little-endian data).
 
 `from_jax_params` takes the JAX package's parameters as flax dicts of numpy
 arrays and returns the diffusers/HF-named state_dicts of the port's UNet,
-VAE and text encoder.  The layout rules are the inverse of those
-`geodiffuser_tpu/models/weights.py` applies to a diffusers checkpoint:
+VAE and text encoder (`sam_from_jax_params` and
+`depth_anything_from_jax_params` those of the perception models).  The
+layout rules are the inverse of those `geodiffuser_tpu/models/weights.py`
+applies to a diffusers checkpoint:
 
     Dense kernel (in, out)             -> Linear weight (out, in)
     Conv kernel (kh, kw, in, out)      -> Conv2d weight (out, in, kh, kw)
@@ -275,3 +279,100 @@ def convert_clip_vision(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     drop = unconsumed_keys(CLIP_VISION_MANIFEST)
     return {k: v for k, v in state.items() if k not in drop}
 
+
+# ---------------------------------------------------------------------------
+# Perception models: SAM and Depth Anything
+# ---------------------------------------------------------------------------
+
+# keys of the published files that no module of the port consumes: SAM's
+# mask-prompt path, DINOv2's mask token and the fusion unit Depth Anything
+# builds in refinenet4 but never calls (dpt.py:127); the JAX converters skip
+# the same keys
+SAM_UNCONSUMED = re.compile(r"^prompt_encoder\.mask_downscaling\.")
+DEPTH_ANYTHING_UNCONSUMED = re.compile(
+    r"^pretrained\.mask_token$|^depth_head\.scratch\.refinenet4\.resConfUnit1\.")
+
+
+def read_perception_checkpoint(path: str, unconsumed: "re.Pattern") -> Dict[str, torch.Tensor]:
+    """A published SAM (`.pth`, `torch.load(weights_only=True)`) or Depth
+    Anything (`.safetensors` or `.pth`) file as a state_dict under its
+    published names, the `unconsumed` keys dropped."""
+    return {k: v for k, v in read_state(path).items() if not unconsumed.search(k)}
+
+
+def load_perception_model(module: torch.nn.Module, state: Dict[str, torch.Tensor],
+                          name: str) -> None:
+    """Check `state` against `module` (one ValueError listing every missing,
+    extra and mis-shaped key) and load it, strictly, cast to the module's
+    parameter type on its device."""
+    check_state_dict(module, state, name)
+    ref = next(module.parameters())
+    module.load_state_dict({k: v.to(ref.device, ref.dtype) for k, v in state.items()},
+                           strict=True)
+
+
+_SAM_RENAMES = [
+    (r"^image_encoder\.patch_embed_proj\.", "image_encoder.patch_embed.proj."),
+    (r"\.blocks_(\d+)\.", r".blocks.\1."),
+    (r"\.mlp_lin(\d)\.", r".mlp.lin\1."),
+    (r"\.neck_(\d)\.", r".neck.\1."),
+    (r"^mask_decoder\.(layers_\d+|final_attn_token_to_image|norm_final_attn)\.",
+     r"mask_decoder.transformer.\1."),
+    (r"\.layers_(\d+)\.", r".layers.\1."),
+    (r"\.upscale_(\d)\.", r".output_upscaling.\1."),
+    (r"\.hyper_(\d+)_lin(\d)\.", r".output_hypernetworks_mlps.\1.layers.\2."),
+    (r"\.iou_lin(\d)\.", r".iou_prediction_head.layers.\1."),
+]
+# JAX leaves renamed whole, the vectors made nn.Embedding rows
+_SAM_SPECIAL = {
+    "prompt_encoder.pe_gaussian": "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+    "prompt_encoder.not_a_point_embed": "prompt_encoder.not_a_point_embed.weight",
+    "prompt_encoder.no_mask_embed": "prompt_encoder.no_mask_embed.weight",
+    "mask_decoder.iou_token": "mask_decoder.iou_token.weight",
+    "mask_decoder.mask_tokens": "mask_decoder.mask_tokens.weight",
+    **{f"prompt_encoder.point_embed_{i}": f"prompt_encoder.point_embeddings.{i}.weight"
+       for i in range(4)},
+}
+_DEPTH_ANYTHING_RENAMES = [
+    (r"^pretrained\.patch_embed_proj\.", "pretrained.patch_embed.proj."),
+    (r"\.blocks_(\d+)\.", r".blocks.\1."),
+    (r"\.attn_(qkv|proj)\.", r".attn.\1."),
+    (r"\.mlp_fc(\d)\.", r".mlp.fc\1."),
+    (r"\.ls(\d)_gamma$", r".ls\1.gamma"),
+    (r"^depth_head\.(projects|resize_layers)_(\d)\.", r"depth_head.\1.\2."),
+    (r"^depth_head\.(layer\d_rn|refinenet\d|output_conv\d)", r"depth_head.scratch.\1"),
+    (r"\.output_conv2_(\d)\.", r".output_conv2.\1."),
+]
+
+
+def _perception_from_jax(tree: dict, renames, special=None) -> Dict[str, torch.Tensor]:
+    tree = tree.get("params", tree)
+    out = {}
+    for path, value in _flatten(tree):
+        value = np.array(value, np.float32)
+        dotted = ".".join(path)
+        if special and dotted in special:
+            name = special[dotted]
+            value = value.reshape(-1, value.shape[-1])
+        else:
+            leaf, value = _leaf(path[-1], value)
+            name = ".".join(path[:-1] + (leaf,))
+            for pattern, repl in renames:
+                name = re.sub(pattern, repl, name)
+        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def sam_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's `Sam` parameters (a flax dict of numpy arrays) as the
+    port's `Sam` state_dict: the inverse of `geodiffuser_tpu/models/weights.py:
+    convert_sam` (Dense and Conv kernels transposed back; ConvTranspose
+    kernels (kh, kw, out, in) -> (in, out, kh, kw); the point embeddings
+    (dim,) -> nn.Embedding rows (1, dim))."""
+    return _perception_from_jax(tree, _SAM_RENAMES, _SAM_SPECIAL)
+
+
+def depth_anything_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's `DepthAnything` parameters as the port's state_dict:
+    the inverse of `geodiffuser_tpu/models/weights.py:convert_depth_anything`."""
+    return _perception_from_jax(tree, _DEPTH_ANYTHING_RENAMES)

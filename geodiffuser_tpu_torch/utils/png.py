@@ -1,9 +1,11 @@
 """PNG files and PIL's resizes, with the standard library and numpy.
 
-The experiment folders hold 8-bit PNGs (`utils/exp_io.py`).  `read_png`
+The experiment folders hold 8-bit PNGs (`utils/exp_io.py`) and the UI
+server sends them (`ui/serve.py`).  `read_png` (`decode_png` on bytes)
 decodes 8-bit non-interlaced gray, gray+alpha, RGB and RGBA files into the
 array PIL's `np.asarray(Image.open(path))` gives (gray (H, W), the others
-(H, W, C)); `write_png` stores 8-bit gray or RGB arrays (filter 0, zlib).
+(H, W, C)); `write_png` (`encode_png` to bytes) stores 8-bit gray or RGB
+arrays (filter 0, zlib).
 `resize_bicubic` and `resize_bilinear` follow Pillow's `Image.resize(size)`
 (bicubic, its default) and `Image.resize(size, Image.BILINEAR)` for 8-bit
 images (Resample.c: the a = -0.5 cubic or the triangle, widened by the
@@ -63,12 +65,11 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit non-interlaced PNG as uint8: (H, W) gray, else (H, W, C)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """The bytes of an 8-bit non-interlaced PNG as uint8: (H, W) gray, else
+    (H, W, C).  Raises ValueError, naming `name`, on anything else."""
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, header, idat = 8, None, []
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
@@ -81,10 +82,10 @@ def read_png(path: str) -> np.ndarray:
             break
         pos += 12 + length
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     width, height, depth, colour, _, _, interlace = header
     if depth != 8 or interlace != 0 or colour not in _CHANNELS:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray, gray+alpha, RGB and RGBA "
+        raise ValueError(f"{name}: only 8-bit non-interlaced gray, gray+alpha, RGB and RGBA "
                          f"PNGs are read (bit depth {depth}, colour type {colour}, "
                          f"interlace {interlace})")
     ch = _CHANNELS[colour]
@@ -92,13 +93,19 @@ def read_png(path: str) -> np.ndarray:
     return img.reshape(height, width) if ch == 1 else img.reshape(height, width, ch)
 
 
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit non-interlaced PNG file as uint8: (H, W) gray, else (H, W, C)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + kind + body
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    """Write a uint8 (H, W) gray or (H, W, 3) RGB array as an 8-bit PNG."""
+def encode_png(image: np.ndarray) -> bytes:
+    """A uint8 (H, W) gray or (H, W, 3) RGB array as the bytes of an 8-bit PNG."""
     img = np.ascontiguousarray(image, np.uint8)
     if img.ndim == 2:
         colour = 0
@@ -109,11 +116,15 @@ def write_png(path: str, image: np.ndarray) -> None:
     h, w = img.shape[:2]
     rows = img.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    return b"".join([_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)),
+                     _chunk(b"IDAT", zlib.compress(raw, 6)), _chunk(b"IEND", b"")])
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write a uint8 (H, W) gray or (H, W, 3) RGB array as an 8-bit PNG."""
+    data = encode_png(image)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:

@@ -14,6 +14,10 @@ from geodiffuser_tpu_torch.kernels import _build
 from geodiffuser_tpu_torch.kernels import flash_attention as fa
 from geodiffuser_tpu_torch.kernels import removal_corr as rc
 from geodiffuser_tpu_torch.kernels import splat as ks
+from geodiffuser_tpu_torch.models.sam import SamConfig
+from geodiffuser_tpu_torch.ui import serve
+from geodiffuser_tpu_torch.utils.depth import DepthAnythingPredictor
+from geodiffuser_tpu_torch.utils.segmentation import SamPredictor
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -23,9 +27,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors"))
+             if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors",
+                                    "gradio"))
 print(len(names), bad)
-assert len(names) >= 31, names
+assert len(names) >= 54, names
 assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.editor",
         "geodiffuser_tpu_torch.core.edit_attention", "geodiffuser_tpu_torch.core.inversion",
         "geodiffuser_tpu_torch.utils.exp_io", "geodiffuser_tpu_torch.utils.png",
@@ -34,7 +39,11 @@ assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.edito
         "geodiffuser_tpu_torch.evaluation.metrics", "geodiffuser_tpu_torch.evaluation.lpips",
         "geodiffuser_tpu_torch.evaluation.fid", "geodiffuser_tpu_torch.evaluation.dift",
         "geodiffuser_tpu_torch.evaluation.study", "geodiffuser_tpu_torch.evaluation.__main__",
-        "geodiffuser_tpu_torch.utils.attention_vis"} <= set(names), names
+        "geodiffuser_tpu_torch.utils.attention_vis", "geodiffuser_tpu_torch.models.dinov2",
+        "geodiffuser_tpu_torch.models.depth_anything", "geodiffuser_tpu_torch.models.sam",
+        "geodiffuser_tpu_torch.utils.depth", "geodiffuser_tpu_torch.utils.segmentation",
+        "geodiffuser_tpu_torch.ui.callbacks", "geodiffuser_tpu_torch.ui.serve",
+        "geodiffuser_tpu_torch.ui.__main__", "geodiffuser_tpu_torch.ui.app"} <= set(names), names
 assert not bad, bad
 """
 
@@ -70,6 +79,33 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors"))
 assert not bad, bad
 """
+
+
+# the UI run as `python -m` (its --help exits 0 after the imports)
+IMPORT_UI = r"""
+import runpy, sys
+sys.argv = ["geodiffuser_tpu_torch.ui", "--native", "--help"]
+try:
+    runpy.run_module("geodiffuser_tpu_torch.ui", run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+import geodiffuser_tpu_torch.ui.serve, geodiffuser_tpu_torch.ui.callbacks
+import geodiffuser_tpu_torch.ui.app, geodiffuser_tpu_torch.utils.segmentation
+assert "geodiffuser_tpu_torch.utils.depth" in sys.modules
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors",
+                                    "gradio"))
+assert not bad, bad
+"""
+
+
+def test_ui_imports_neither_jax_pil_nor_gradio():
+    """The UI (server, callbacks, the gradio app's module, `python -m`) and
+    the perception models it reaches: no JAX, no JAX package, no PIL (the
+    page converts uploads to PNG), no gradio, no safetensors."""
+    out = subprocess.run([sys.executable, "-c", IMPORT_UI], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_driver_path_imports_neither_jax_pil_nor_safetensors():
@@ -117,6 +153,17 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(no_card):
         editor.perform_stitch(pipe, *scene)
     with pytest.raises(ValueError, match="edit_type"):
         editor.EditSession(pipe, EditConfig(edit_type="geometry_resizer"), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SamPredictor(SamConfig.tiny())
+    assert SamPredictor(SamConfig.tiny(), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DepthAnythingPredictor("tiny")
+    assert DepthAnythingPredictor("tiny", device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.make_server(pipe, port=0)
+    serve.make_server(pipe, port=0, device="cpu").server_close()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--tiny"])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_never_fall_back(monkeypatch):
