@@ -51,15 +51,20 @@ Phases, each of which fails the run on error:
      with random AlexNet/LPIPS .pth and CLIP ViT-B/32 weights) in a process
      of its own; then the UI server ("ui"): SAM ViT-H and Depth Anything
      ViT-L at full width in float32 (random weights from --seed, their
-     encode, decode and depth times), `ui.serve.make_server` over the
+     encode, decode and depth times), each other backend of the depth
+     dropdown (MiDaS DPT-Large, DPT-Hybrid and its KITTI / NYU variants,
+     MiDaS v2.1, ZoeDepth, ZoeDepth-NK) at full width in float32, one at a
+     time (parameters, ms a depth map), `ui.serve.make_server` over the
      resident SD-1.4 pipeline on a thread, and over HTTP a user's session:
-     state, load_image (PNG), two SAM clicks (equal bits), Depth Anything
-     depth, set_mask, load of the driver's editor folder, the preview, the
+     state, load_image (PNG), two SAM clicks (equal bits), Depth Anything,
+     DPT-Large and ZoeDepth-NK depth, set_mask, load of the driver's editor
+     folder, the preview, the
      edit (a depth request answered while it runs) and the inpaint at
      --steps, each with every launch count set to 0 just before and read
      just after, save and load; the served edit and inpaint against direct
-     `EditSession.run`s (equal bits); tiny float32 SAM and Depth Anything on
-     the card against the CPU;
+     `EditSession.run`s (equal bits); tiny float32 SAM, Depth Anything and
+     the five other depth models on the card against the CPU, and one
+     `save_params` / `load_params` round trip on the card;
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
 `--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
@@ -1073,29 +1078,6 @@ DRIVER_EDIT_LEVELS = 0
 TOY_WORDS = ("a", "photo", "of", "the", "cat", "on", "mat")
 
 
-def write_safetensors(path: str, tensors: dict) -> int:
-    """CPU tensors (float16 or int64) as a .safetensors file: an 8-byte
-    little-endian header length, the JSON header (padded to 8 bytes), the
-    raw little-endian data.  Returns the bytes written."""
-    import torch
-
-    codes = {torch.float16: "F16", torch.int64: "I64"}
-    header, offset = {}, 0
-    for name in sorted(tensors):
-        t = tensors[name]
-        n = t.numel() * t.element_size()
-        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)) + raw)
-        for name in sorted(tensors):
-            f.write(tensors[name].contiguous().numpy().data)
-    return 8 + len(raw) + offset
-
-
 def safetensors_shapes(path: str) -> dict:
     """{name: shape} from a .safetensors file's header."""
     with open(path, "rb") as f:
@@ -1134,6 +1116,7 @@ def write_checkpoint(pipe, root: str):
     import torch
 
     from geodiffuser_tpu_torch.models import weights
+    from geodiffuser_tpu_torch.utils.checkpoint import write_safetensors
 
     sources, total = {}, 0
     for name, module in pipe.modules().items():
@@ -1364,6 +1347,7 @@ def write_lpips_clip_weights(root: str, seed: int) -> None:
     from geodiffuser_tpu_torch.evaluation import lpips
     from geodiffuser_tpu_torch.models import weights
     from geodiffuser_tpu_torch.models.clip_vision import CLIPVisionEncoder
+    from geodiffuser_tpu_torch.utils.checkpoint import write_safetensors
 
     g = torch.Generator().manual_seed(seed)
     alex = {}
@@ -1613,14 +1597,121 @@ def check_ui_small(seed: int) -> None:
            "ui small reference")
 
 
+# the dropdown's other backends, each at full geometry and its predictor's
+# default input size (DPT-Hybrid's three variants separately)
+DEPTH_BACKENDS = ("dpt_large", "dpt_hybrid", "dpt_hybrid_kitti", "dpt_hybrid_nyu", "midas_v21",
+                  "zoedepth", "zoedepth_nk")
+
+
+def run_depth_backends(args, card: str, image) -> dict:
+    """Each backend built at full width in float32 on the card (random weights
+    from --seed), run on the scene: finite (H, W) depth, its parameter count,
+    ms a depth map by CUDA events under the UI server's own settings
+    (PyTorch's default TF32 convolutions), its peak memory and its seconds in
+    this loop (build, check and timing); freed before the next.  DPT-Large
+    is also timed without TF32 convolutions, as the rest of this script
+    runs, where cuDNN picks an FFT algorithm for the DPT scratch at 384²;
+    with --profile each backend's three largest kernels are listed.  The
+    loop is one PhaseTimer phase.  Returns {name: {...}}."""
+    import torch
+
+    from geodiffuser_tpu_torch.utils import depth as depth_utils
+    from geodiffuser_tpu_torch.utils.profiling import PhaseTimer
+
+    out, timer = {}, PhaseTimer()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with timer.phase("depth_backends", block_on=torch.zeros(1, device="cuda")):
+            for name in DEPTH_BACKENDS:
+                t0 = time.time()
+                pred = depth_utils.get_depth_predictor(name, device="cuda", seed=args.seed)
+                torch.cuda.synchronize()
+                build_s = time.time() - t0
+                n = sum(p.numel() for p in pred.model.parameters())
+                torch.cuda.reset_peak_memory_stats()
+                d = pred(image)
+                expect(d.shape == image.shape[:2] and bool(np.isfinite(d).all()),
+                       f"ui depth {name}: finite depth of the image's shape")
+                call = lambda: pred.model_depth(image)
+                ms = time_ms(call, iters=5)
+                row = {"params": n, "ms": round(ms, 3),
+                       "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+                       "input": list(pred.input_size())}
+                note = ""
+                if name == "dpt_large":
+                    torch.backends.cudnn.allow_tf32 = False
+                    row["ms_no_tf32_convs"] = round(time_ms(call, iters=5), 3)
+                    torch.backends.cudnn.allow_tf32 = True
+                    note = f", {row['ms_no_tf32_convs']:.2f} ms without TF32 convolutions"
+                if args.profile:
+                    top = kernel_breakdown(call, iters=2).split("; ")[:3]
+                    note += f"; largest kernels a call: {'; '.join(top)}"
+                torch.cuda.synchronize()
+                row["loop_s"] = round(time.time() - t0, 2)
+                out[name] = row
+                log(f"ui depth backend {name}: {n} float32 parameters, input "
+                    f"{pred.input_size()}, {ms:.2f} ms a depth map (CUDA events around "
+                    f"model_depth: upload, resize, normalize, model, resize back; mean of 5; "
+                    f"TF32 convolutions, PyTorch's default){note}, peak {row['peak_gib']:.2f} "
+                    f"GiB, built in {build_s:.1f} s, {row['loop_s']:.1f} s in the loop; {card}")
+                del pred, d, call
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    log(f"ui depth backends: {json.dumps(out)}")
+    log(f"ui depth backends PhaseTimer: {json.dumps(timer.summary())}")
+    return out
+
+
+def check_depth_small(seed: int, tmp: str) -> None:
+    """The five tiny float32 depth models built on the CPU and copied to the
+    card: each predictor's depth on the card against the CPU (UI_TOL); one
+    save_params / load_params round trip of a state dict on the card."""
+    import torch
+
+    from geodiffuser_tpu_torch.models import midas_dpt as md
+    from geodiffuser_tpu_torch.models import zoedepth as zd
+    from geodiffuser_tpu_torch.models import zoedepth_nk as znk
+    from geodiffuser_tpu_torch.utils import depth as depth_utils
+    from geodiffuser_tpu_torch.utils.checkpoint import load_params, save_params
+
+    image, _, _ = build_scene(96)
+    tiny = {"dpt_large": dict(config=md.DPTConfig.tiny()),
+            "dpt_hybrid": dict(config=md.DPTHybridConfig.tiny()),
+            "midas_v21": dict(config=md.MidasV21Config.tiny(), size=64),
+            "zoedepth": dict(config=zd.ZoeDepthConfig.tiny(), size=64),
+            "zoedepth_nk": dict(config=znk.ZoeDepthNKConfig.tiny(), size=(40, 48))}
+    errs = {}
+    for name, kw in tiny.items():
+        cpu = depth_utils.get_depth_predictor(name, device="cpu", seed=seed, **kw)
+        cuda = depth_utils.get_depth_predictor(name, state_dict=cpu.model.state_dict(), **kw)
+        got, want = cuda.model_depth(image), cpu.model_depth(image)
+        expect(bool(torch.isfinite(got).all()), f"depth small {name}: finite on the card")
+        errs[name] = rel_err(got.cpu(), want)
+    log(f"depth small reference (tiny fp32 backends, 96^2 scene, card vs CPU): rel err "
+        f"{json.dumps({k: float(f'{v:.2e}') for k, v in errs.items()})} (tol {UI_TOL})")
+    expect(max(errs.values()) <= UI_TOL, "depth small reference")
+    state = cuda.model.state_dict()
+    path = os.path.join(tmp, "zoedepth_nk_tiny.safetensors")
+    save_params(path, state)
+    back = load_params(path, like=state)
+    expect(all(torch.equal(back[k], v) and back[k].device == v.device for k, v in state.items()),
+           "save_params / load_params on the card: equal bits")
+    log(f"save_params / load_params: {len(state)} tensors of the tiny ZoeDepth-NK on the card, "
+        f"{os.path.getsize(path)} bytes, read back bit-equal")
+
+
 def run_ui(args, pipe, card: str, tmp: str, root: str):
     """The UI server over the resident SD-1.4 pipeline, with SAM ViT-H and
     Depth Anything ViT-L at full width in float32 (random weights from
-    --seed): every request of a user's session over HTTP, the edit and the
+    --seed), after the dropdown's other depth backends one at a time
+    (`run_depth_backends`): every request of a user's session over HTTP
+    (depth by Depth Anything, DPT-Large and ZoeDepth-NK), the edit and the
     inpaint with every launch count set to 0 just before and read just
     after, a depth request running beside the edit; the edited and inpainted
-    images against direct EditSession.run calls (equal bits).  Returns
-    (launches, launches by shape) of the edit and inpaint together."""
+    images against direct EditSession.run calls (equal bits); then the tiny
+    perception and depth models card against CPU.  Returns (launches,
+    launches by shape) of the edit and inpaint together."""
     import threading
     import urllib.request
 
@@ -1656,6 +1747,7 @@ def run_ui(args, pipe, card: str, tmp: str, root: str):
         f"work included): SAM encode (resize, normalize, pad to 1024^2, ViT-H) {enc_ms:.1f} ms, "
         f"SAM decode (prompt, two-way decoder, mask upsampling) {dec_ms:.2f} ms, Depth "
         f"Anything ViT-L (518^2) {da_ms:.1f} ms; {card}")
+    backends_peak = max(r["peak_gib"] for r in run_depth_backends(args, card, image).values())
 
     srv = serve.make_server(pipe, port=0, sam_predictor=sam, depth_predictor=depth)
     app = srv.RequestHandlerClass.app
@@ -1680,6 +1772,13 @@ def run_ui(args, pipe, card: str, tmp: str, root: str):
                                        "translate_factor": 0.7})["depth"])
         expect(shown.shape == (SIZE, SIZE) and app.state.depth.shape == (SIZE, SIZE)
                and bool(np.isfinite(app.state.depth).all()), "ui: a finite depth map")
+        for model in ("dpt_large", "zoedepth_nk"):   # built by the server on first use
+            shown = b64_png(post("depth", {"model": model, "translate_factor": 0.7})["depth"])
+            served = app.state.depth.copy()
+            direct = app.state.depth_predictors[model](image, translate_factor=0.7)
+            expect(shown.shape == (SIZE, SIZE) and bool(np.isfinite(served).all())
+                   and np.array_equal(served, direct),
+                   f"ui: a {model} depth map over HTTP, equal to a direct call")
         got = b64_png(post("set_mask", {"mask": png_b64(mask * 255)})["mask"])
         expect(np.array_equal(got > 127, mask > 0.5), "ui: set_mask")
         post("load", {"folder": folder})
@@ -1744,8 +1843,10 @@ def run_ui(args, pipe, card: str, tmp: str, root: str):
     del sam, depth, app, srv
     torch.cuda.empty_cache()
     check_ui_small(args.seed)
+    check_depth_small(args.seed, tmp)
     log(f"ui phase: {time.time() - t_phase:.1f} s, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (this process); {card}")
+        f"{max(torch.cuda.max_memory_allocated() / 2**30, backends_peak):.2f} GiB (this "
+        f"process; the depth backends' {backends_peak:.2f}); {card}")
     launches = {k: runs["edit"][0][k] + runs["inpaint"][0][k] for k in runs["edit"][0]}
     shapes = dict(runs["edit"][1])
     for key, n in runs["inpaint"][1].items():
@@ -1825,7 +1926,8 @@ def main(argv=None) -> int:
                     help="DDIM steps of the 1024^2 editor and remover edits (step 0 optimizes)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace each edit with torch.profiler and print device time by kernel")
+                    help="trace each edit with torch.profiler and print device time by kernel, "
+                         "and list each depth backend's largest kernels")
     ap.add_argument("--only", default=None,
                     help="check and time only these kernels: any of flash, corr, splat, "
                          "comma-separated")

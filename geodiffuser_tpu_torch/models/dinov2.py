@@ -21,10 +21,11 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from geodiffuser_tpu_torch.ops.image import jax_resize_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,31 +61,15 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _cubic_weights(in_size: int, out_size: int, device) -> torch.Tensor:
-    """(in_size, out_size) float32 weights of JAX's `compute_weight_mat`
-    (jax/_src/image/scale.py) for the cubic kernel with antialiasing."""
-    inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
-    src = torch.arange(in_size, dtype=torch.float32, device=device)
-    w = _keys_cubic((sample[None, :] - src[:, None]).abs() / kernel_scale)
-    total = w.sum(0, keepdim=True)
-    eps = 1000.0 * float(np.finfo(np.float32).eps)
-    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
-
-
 def resize_cubic_jax(grid: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """`jax.image.resize(grid, (height, width, C), method="cubic")` of an
     (H, W, C) float32 grid, one separable pass a resized axis."""
     h, w, _ = grid.shape
     x = grid.float()
     if height != h:
-        x = torch.einsum("hwc,ho->owc", x, _cubic_weights(h, height, x.device))
+        x = torch.einsum("hwc,ho->owc", x, jax_resize_weights(h, height, _keys_cubic, x.device))
     if width != w:
-        x = torch.einsum("hwc,wo->hoc", x, _cubic_weights(w, width, x.device))
+        x = torch.einsum("hwc,wo->hoc", x, jax_resize_weights(w, width, _keys_cubic, x.device))
     return x
 
 

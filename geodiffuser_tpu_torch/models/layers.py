@@ -109,11 +109,12 @@ def seeded_init_(module: nn.Module, generator: torch.Generator, unit_normal: tup
     """Random weights from `generator` for a model built without a checkpoint
     (the perception models): a weight of two or more dimensions
     N(0, 1/fan_in), fan_in the product of all but its first dimension; a
-    LayerNorm's scale 1 + N(0, 0.02^2); the parameters and buffers whose
+    norm's scale (LayerNorm, GroupNorm, FrozenBatchNorm) 1 + N(0, 0.02^2);
+    the parameters and buffers whose
     names end with one of `unit_normal` N(0, 1); every other parameter
     N(0, 0.02^2).  The generator lives on the module's device."""
     norms = {f"{name}.weight" for name, m in module.named_modules()
-             if "LayerNorm" in type(m).__name__}
+             if "Norm" in type(m).__name__}
     tensors = dict(module.named_parameters())
     if unit_normal:
         tensors.update((k, v) for k, v in module.named_buffers() if k.endswith(unit_normal))

@@ -16,8 +16,8 @@ loads as it is: the keys `models/manifests/*.json` mark `unconsumed` are
 dropped (SD-1.x's or SD-2.1's manifests, by the configuration:
 `components`), the rest must match the module's keys and shapes exactly.
 `convert_clip_vision` does the same for the CLIP ViT-B/32 vision tower, and
-`read_perception_checkpoint` / `load_perception_model` for the published
-SAM and Depth Anything files (their unconsumed keys dropped by pattern).  The
+`read_checkpoint` / `load_perception_model` for the published SAM, Depth
+Anything, DPT, MiDaS and ZoeDepth-NK files, each against its manifest.  The
 safetensors format is read here with `json` and numpy (an 8-byte
 little-endian header length, a JSON header, raw little-endian data).
 
@@ -192,13 +192,15 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 
 def read_state(path: str) -> Dict[str, torch.Tensor]:
-    """A state_dict from a .safetensors file or a torch .bin/.pth (tensors
-    only: `weights_only=True`; a {"state_dict": ...} wrapper is opened)."""
+    """A state_dict from a .safetensors file or a torch .bin/.pth/.pt (tensors
+    only: `weights_only=True`; a {"state_dict": ...} or {"model": ...}
+    wrapper, as ZoeDepth's and DPT's releases have, is opened)."""
     if path.endswith(".safetensors"):
         return read_safetensors(path)
     state = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(state, dict) and "state_dict" in state:
-        state = state["state_dict"]
+    for wrapper in ("state_dict", "model"):
+        if isinstance(state, dict) and wrapper in state:
+            state = state[wrapper]
     return dict(state)
 
 
@@ -208,6 +210,13 @@ def unconsumed_keys(manifest: str) -> frozenset:
     (e.g. the text encoder's `position_ids` buffer)."""
     with open(MANIFESTS / manifest) as f:
         return frozenset(json.load(f).get("unconsumed", ()))
+
+
+def read_checkpoint(path: str, manifest: str) -> Dict[str, torch.Tensor]:
+    """The published file at `path` (`read_state`) as a state_dict under its
+    published names, the keys `manifest` marks `unconsumed` dropped."""
+    drop = unconsumed_keys(manifest)
+    return {k: v for k, v in read_state(path).items() if k not in drop}
 
 
 def check_state_dict(module: torch.nn.Module, state: Dict[str, torch.Tensor], name: str) -> None:
@@ -242,9 +251,7 @@ def load_sd_checkpoint(checkpoint_dir: str, pipeline: "Pipeline") -> Dict[str, D
     dtypes)."""
     states = {}
     for name, (rel, manifest) in components(pipeline.config).items():
-        state = read_state(_component_path(checkpoint_dir, rel))
-        drop = unconsumed_keys(manifest)
-        states[name] = {k: v for k, v in state.items() if k not in drop}
+        states[name] = read_checkpoint(_component_path(checkpoint_dir, rel), manifest)
     for name, module in pipeline.modules().items():
         check_state_dict(module, states[name], name)
     pipeline.load_state_dicts(states)
@@ -263,8 +270,7 @@ def load_vae_override(vae_dir: str, pipeline: "Pipeline") -> Dict[str, torch.Ten
             break
     else:
         raise FileNotFoundError(f"no VAE weights under {vae_dir}")
-    drop = unconsumed_keys(COMPONENTS["vae"][1])
-    state = {k: v for k, v in read_state(path).items() if k not in drop}
+    state = read_checkpoint(path, COMPONENTS["vae"][1])
     check_state_dict(pipeline.vae, state, "vae-override")
     pipeline.load_state_dicts({"vae": state})
     return state
@@ -283,22 +289,6 @@ def convert_clip_vision(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
 # ---------------------------------------------------------------------------
 # Perception models: SAM and Depth Anything
 # ---------------------------------------------------------------------------
-
-# keys of the published files that no module of the port consumes: SAM's
-# mask-prompt path, DINOv2's mask token and the fusion unit Depth Anything
-# builds in refinenet4 but never calls (dpt.py:127); the JAX converters skip
-# the same keys
-SAM_UNCONSUMED = re.compile(r"^prompt_encoder\.mask_downscaling\.")
-DEPTH_ANYTHING_UNCONSUMED = re.compile(
-    r"^pretrained\.mask_token$|^depth_head\.scratch\.refinenet4\.resConfUnit1\.")
-
-
-def read_perception_checkpoint(path: str, unconsumed: "re.Pattern") -> Dict[str, torch.Tensor]:
-    """A published SAM (`.pth`, `torch.load(weights_only=True)`) or Depth
-    Anything (`.safetensors` or `.pth`) file as a state_dict under its
-    published names, the `unconsumed` keys dropped."""
-    return {k: v for k, v in read_state(path).items() if not unconsumed.search(k)}
-
 
 def load_perception_model(module: torch.nn.Module, state: Dict[str, torch.Tensor],
                           name: str) -> None:
@@ -345,7 +335,15 @@ _DEPTH_ANYTHING_RENAMES = [
 ]
 
 
+def _renamed(name: str, renames) -> str:
+    for pattern, repl in renames:
+        name = re.sub(pattern, repl, name)
+    return name
+
+
 def _perception_from_jax(tree: dict, renames, special=None) -> Dict[str, torch.Tensor]:
+    """`renames`: (pattern, replacement) pairs applied in order to each
+    dotted JAX name, or a function of that name."""
     tree = tree.get("params", tree)
     out = {}
     for path, value in _flatten(tree):
@@ -357,8 +355,7 @@ def _perception_from_jax(tree: dict, renames, special=None) -> Dict[str, torch.T
         else:
             leaf, value = _leaf(path[-1], value)
             name = ".".join(path[:-1] + (leaf,))
-            for pattern, repl in renames:
-                name = re.sub(pattern, repl, name)
+            name = renames(name) if callable(renames) else _renamed(name, renames)
         out[name] = torch.from_numpy(np.ascontiguousarray(value))
     return out
 
@@ -376,3 +373,105 @@ def depth_anything_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     """The JAX package's `DepthAnything` parameters as the port's state_dict:
     the inverse of `geodiffuser_tpu/models/weights.py:convert_depth_anything`."""
     return _perception_from_jax(tree, _DEPTH_ANYTHING_RENAMES)
+
+
+# ---------------------------------------------------------------------------
+# Depth backends: MiDaS DPT-Large / DPT-Hybrid / v2.1, ZoeDepth, ZoeDepth-NK
+# ---------------------------------------------------------------------------
+
+def _post(n: int, part: str) -> str:
+    return f"pretrained.act_postprocess{n + 1}.{part}."
+
+
+# the JAX DPT trees' names (geodiffuser_tpu/models/midas_dpt.py) -> the
+# published ones: the inverse of convert_dpt_large / convert_dpt_hybrid /
+# convert_midas_v21 and of the core part of convert_zoedepth_nk
+_DPT_RENAMES = [
+    (r"^patch_embed_proj\.", "pretrained.model.patch_embed.proj."),
+    (r"^(cls_token|pos_embed)$", r"pretrained.model.\1"),
+    (r"^blocks_(\d+)\.", r"pretrained.model.blocks.\1."),
+    (r"\.attn_(qkv|proj)\.", r".attn.\1."),
+    (r"\.mlp_fc(\d)\.", r".mlp.fc\1."),
+    (r"^readout_(\d)\.", lambda m: _post(int(m[1]), "0.project.0")),
+    (r"^projects_(\d)\.", lambda m: _post(int(m[1]), "3")),
+    (r"^resize_layers_(\d)\.", lambda m: _post(int(m[1]), "4")),
+    (r"^(layer\d_rn|refinenet\d)\.", r"scratch.\1."),
+    (r"^head_conv(\d)\.", lambda m: f"scratch.output_conv.{2 * int(m[1]) - 2}."),
+    # DPT-Hybrid's ResNetV2 stem
+    (r"^stem_conv\.", "pretrained.model.patch_embed.backbone.stem.conv."),
+    (r"^stem_norm\.", "pretrained.model.patch_embed.backbone.norm."),
+    (r"^stages_(\d)_blocks_(\d+)\.",
+     r"pretrained.model.patch_embed.backbone.stages.\1.blocks.\2."),
+    (r"\.downsample_conv\.", ".downsample.conv."),
+]
+# MiDaS v2.1: the stem and ResNet layer1 in one Sequential, frozen BatchNorm
+_MIDAS_V21_RENAMES = [
+    (r"^conv1\.", "pretrained.layer1.0."),
+    (r"^bn1\.", "pretrained.layer1.1."),
+    (r"^layer1_(\d+)\.", r"pretrained.layer1.4.\1."),
+    (r"^layer([234])_(\d+)\.", r"pretrained.layer\1.\2."),
+    (r"\.downsample_conv\.", ".downsample.0."),
+    (r"\.downsample_bn\.", ".downsample.1."),
+    (r"\.mean$", ".running_mean"),
+    (r"\.var$", ".running_var"),
+    (r"^(layer\d_rn|refinenet\d)\.", r"scratch.\1."),
+    (r"^head_conv(\d)\.", lambda m: f"scratch.output_conv.{2 * int(m[1]) - 2}."),
+]
+# the metric heads of ZoeDepth and ZoeDepth-NK (zoedepth_nk.py:502-513)
+_ZOE_HEAD_RENAMES = [
+    (r"\.net_(\d)\.", r"._net.\1."),
+    (r"\.mlp_(\d)\.", r".mlp.\1."),
+    (r"^(projectors|attractors)_(\d)\.", r"\1.\2."),
+    (r"^(seed_bin_regressors|conditional_log_binomial)_(nyu|kitti)\.", r"\1.\2."),
+    (r"^attractors_(nyu|kitti)_(\d)\.", r"attractors.\1.\2."),
+    (r"^mlp_classifier_(\d)\.", r"mlp_classifier.\1."),
+    (r"^patch_transformer\.layers_(\d)\.", r"patch_transformer.transformer_encoder.layers.\1."),
+    (r"\.layers\.(\d)\.(in_proj_weight|in_proj_bias|out_proj)", r".layers.\1.self_attn.\2"),
+]
+
+
+def _zoe_name(name: str) -> str:
+    if name.startswith("core."):
+        return "core.core." + _renamed(name[len("core."):], _DPT_RENAMES)
+    return _renamed(name, _ZOE_HEAD_RENAMES)
+
+
+def dpt_large_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's `DPTLarge` or `DPTHybrid` (any variant) parameters
+    as the port's state_dict (the published names): the inverse of
+    `convert_dpt_large` and `convert_dpt_hybrid`."""
+    return _perception_from_jax(tree, _DPT_RENAMES)
+
+
+# the hybrid's tree is the ViT's plus its ResNetV2 stem, which `_DPT_RENAMES`
+# also maps: one bridge serves both, under each model's name
+dpt_hybrid_from_jax_params = dpt_large_from_jax_params
+
+
+def midas_v21_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX `MidasNetV21` parameters as the port's state_dict: the inverse
+    of `convert_midas_v21` (FrozenBatchNorm's mean and var as the running
+    statistics)."""
+    return _perception_from_jax(tree, _MIDAS_V21_RENAMES)
+
+
+def zoedepth_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX single-head `ZoeDepth` parameters as the port's state_dict
+    (published ZoeDepth names; no published file of this model exists)."""
+    return _perception_from_jax(tree, _zoe_name)
+
+
+def _split_qkv(tree):
+    """BEiT's fused `qkv_kernel` leaf as a `qkv` Dense, so that it is
+    transposed as a kernel."""
+    if not isinstance(tree, dict):
+        return tree
+    return {("qkv" if k == "qkv_kernel" else k): ({"kernel": v} if k == "qkv_kernel"
+                                                  else _split_qkv(v))
+            for k, v in tree.items()}
+
+
+def zoedepth_nk_from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX `ZoeDepthNK` parameters as the port's state_dict (ZoeD-M12-NK's
+    names): the inverse of `convert_zoedepth_nk`."""
+    return _perception_from_jax(_split_qkv(tree.get("params", tree)), _zoe_name)

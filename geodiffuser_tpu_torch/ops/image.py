@@ -29,6 +29,44 @@ def resize_bilinear_hwc(x: torch.Tensor, height: int, width: int) -> torch.Tenso
     return resize_bilinear(x.permute(2, 0, 1), height, width).permute(1, 2, 0)
 
 
+def jax_resize_weights(in_size: int, out_size: int, kernel, device) -> torch.Tensor:
+    """(in_size, out_size) float32 weights of JAX's `compute_weight_mat`
+    (jax/_src/image/scale.py) with antialiasing, for `kernel` (a function of
+    the distance in input pixels): half-pixel centres, the kernel widened by
+    the reduction factor when the axis shrinks, the weights normalised per
+    output position, zero where the sample lies outside the input."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = kernel((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def resize_linear_jax(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """`jax.image.resize(method="linear")` with its default antialiasing over
+    the last two axes of a float32 array: one separable pass a resized axis,
+    height first.  Equal to `resize_bilinear` where an axis grows; where it
+    shrinks, the triangle is widened by the reduction factor (F.interpolate
+    has no such kernel: its antialias option is another filter)."""
+    h, w = x.shape[-2:]
+    x = x.float()
+    if height != h:
+        x = torch.einsum("...hw,ho->...ow", x, jax_resize_weights(h, height, _triangle, x.device))
+    if width != w:
+        x = torch.einsum("...hw,wo->...ho", x, jax_resize_weights(w, width, _triangle, x.device))
+    return x
+
+
 def _box_counts(mask: torch.Tensor, kernel: int) -> torch.Tensor:
     """Sum of a (kernel x kernel) box around each pixel, zero ("SAME") padding."""
     lo = (kernel - 1) // 2

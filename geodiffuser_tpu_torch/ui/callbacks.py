@@ -176,7 +176,7 @@ def set_mask(state: UIState, mask: np.ndarray) -> np.ndarray:
 
 
 # the reference dropdown's backends (ui_utils.py:380-411,
-# depth_predictor.py:105-370); `utils/depth.py` says which are ported
+# depth_predictor.py:105-370), each served by `utils/depth.py`
 DEPTH_MODELS = (
     "depth_anything", "dpt_large", "dpt_hybrid", "dpt_hybrid_kitti",
     "dpt_hybrid_nyu", "midas_v21", "zoedepth", "zoedepth_nk", "constant",

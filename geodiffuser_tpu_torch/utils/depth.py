@@ -1,8 +1,7 @@
 """Depth prediction wrappers and post-processing rules.
 
 Counterpart of `geodiffuser_tpu/utils/depth.py` (the reference's
-depth_predictor.py wrapper layer and ui_utils' depth helpers), for the
-backend the UI uses by default, Depth Anything (`models/depth_anything.py`):
+depth_predictor.py wrapper layer and ui_utils' depth helpers):
 
   * relative -> edit depth: d = d.max() - d, then d += d.max() *
     translate_factor (depth_predictor.py:364-369; the UI's slider is 0.7,
@@ -13,15 +12,16 @@ backend the UI uses by default, Depth Anything (`models/depth_anything.py`):
   * disparity -> depth, depth scaling, the background's nearest-neighbour
     fill (ui_utils.py:383-401, 729-815).
 
-The other backends of the reference's dropdown (MiDaS DPT-Large / Hybrid /
-v2.1, ZoeDepth, ZoeDepth-NK) are not ported yet (ROADMAP.md, Queue 1):
-`get_depth_predictor` raises NotImplementedError for them and never
-substitutes another model.
+The backends of the reference's dropdown: Depth Anything
+(`models/depth_anything.py`), MiDaS DPT-Large, DPT-Hybrid with its KITTI /
+NYU metric variants and MiDaS v2.1 (`models/midas_dpt.py`), ZoeDepth
+(`models/zoedepth.py`) and ZoeDepth-NK (`models/zoedepth_nk.py`), each with
+the JAX predictor's input size, normalization and output rule.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,11 @@ from geodiffuser_tpu_torch.core.pipeline import resolve_device
 from geodiffuser_tpu_torch.models import weights as weights_lib
 from geodiffuser_tpu_torch.models.depth_anything import DepthAnything, DepthAnythingConfig
 from geodiffuser_tpu_torch.models.layers import seeded_init_
+from geodiffuser_tpu_torch.models.midas_dpt import (
+    DPTConfig, DPTHybrid, DPTHybridConfig, DPTLarge, MidasNetV21, MidasV21Config,
+)
+from geodiffuser_tpu_torch.models.zoedepth import ZoeDepth, ZoeDepthConfig
+from geodiffuser_tpu_torch.models.zoedepth_nk import ZoeDepthNK, ZoeDepthNKConfig
 from geodiffuser_tpu_torch.ops import image as image_ops
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -152,8 +157,8 @@ class DepthAnythingPredictor:
         with self.device:
             self.model = DepthAnything(self.cfg).eval().requires_grad_(False)
         if checkpoint_path:
-            state_dict = weights_lib.read_perception_checkpoint(
-                checkpoint_path, weights_lib.DEPTH_ANYTHING_UNCONSUMED)
+            state_dict = weights_lib.read_checkpoint(checkpoint_path,
+                                                     "depth_anything_vitl14.json")
         if state_dict is None:
             seeded_init_(self.model, torch.Generator(self.device).manual_seed(seed))
         else:
@@ -189,18 +194,184 @@ class DepthAnythingPredictor:
         return postprocess_relative_depth(d, translate_factor)
 
 
-# the reference dropdown's backends not ported yet (ROADMAP.md, Queue 1)
-NOT_PORTED = ("dpt_large", "midas", "dpt_hybrid", "dpt_hybrid_kitti", "dpt_hybrid_nyu",
-              "midas_v21", "zoedepth", "zoedepth_nk", "zoe_nk")
+def _image01(image: np.ndarray) -> np.ndarray:
+    img = np.asarray(image, np.float32)
+    return img / 255.0 if img.max() > 1.5 else img
+
+
+class _ResizedDepthPredictor:
+    """A depth model behind the JAX predictors' common wrapper: the image
+    resized (bilinear, no antialiasing) to `input_size()` (each side of
+    `size` rounded down to a multiple of `multiple`, at least two),
+    normalized with `mean` / `std`, the model's output resized back, times
+    `out_scale`; relative depth is inverted and pushed back, `metric` depth
+    only pushed back.  The model is built on the device; its weights are the
+    published file at `checkpoint_path` (the keys its `manifest` marks
+    unconsumed dropped), else `state_dict` (the port's names), else random
+    from `seed`."""
+
+    name = "depth"
+    manifest = None
+    mean, std = IMAGENET_MEAN, IMAGENET_STD
+    multiple = 16
+    metric = False
+    out_scale = 1.0
+
+    def _load(self, build, device, checkpoint_path, state_dict, seed: int):
+        self.device = resolve_device(device)
+        with self.device:
+            self.model = build().eval().requires_grad_(False)
+        if checkpoint_path:
+            state_dict = weights_lib.read_checkpoint(checkpoint_path, self.manifest)
+        if state_dict is None:
+            seeded_init_(self.model, torch.Generator(self.device).manual_seed(seed))
+        else:
+            weights_lib.load_perception_model(self.model, state_dict, self.name)
+        self._mean = torch.as_tensor(self.mean).to(self.device)
+        self._std = torch.as_tensor(self.std).to(self.device)
+
+    def input_size(self) -> Tuple[int, int]:
+        size = self.size if isinstance(self.size, tuple) else (self.size, self.size)
+        return tuple(max(s // self.multiple, 2) * self.multiple for s in size)
+
+    def model_depth(self, image: np.ndarray) -> torch.Tensor:
+        """(H, W, 3) uint8 or float image -> the model's (H, W) float32 output
+        at the image's size, on the device."""
+        img = _image01(image)
+        h, w = img.shape[:2]
+        with torch.inference_mode():
+            x = image_ops.resize_bilinear_hwc(torch.from_numpy(img).to(self.device),
+                                              *self.input_size())
+            x = (x - self._mean) / self._std
+            return image_ops.resize_bilinear(self.model(x[None])[0], h, w)
+
+    def __call__(self, image: np.ndarray, translate_factor: float = 0.0) -> np.ndarray:
+        d = self.model_depth(image).cpu().numpy() * self.out_scale
+        if self.metric:
+            return d + d.max() * translate_factor if translate_factor else d
+        return postprocess_relative_depth(d, translate_factor)
+
+
+class MidasDPTPredictor(_ResizedDepthPredictor):
+    """dpt_large path of get_monocular_depth (depth_predictor.py:105-274): a
+    side of `size` (with a config: half its 16-pixel position grid), the
+    DPT's mean = std = 0.5 normalization (depth_predictor.py:128), inverse
+    depth out, then the invert / push-back rule."""
+
+    name = "dpt_large"
+    manifest = "dpt_large.json"
+    mean = std = np.full(3, 0.5, np.float32)
+
+    def __init__(self, config: Optional[DPTConfig] = None, size: int = 384,
+                 checkpoint_path: Optional[str] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 seed: int = 0):
+        self.cfg = config or DPTConfig()
+        self.size = size if config is None else 16 * self.cfg.pos_grid // 2
+        self.multiple = self.cfg.patch_size
+        self._load(lambda: DPTLarge(self.cfg), device, checkpoint_path, state_dict, seed)
+
+
+class DPTHybridPredictor(_ResizedDepthPredictor):
+    """dpt_hybrid / dpt_hybrid_kitti / dpt_hybrid_nyu (depth_predictor.py:
+    130-168): 0.5 / 0.5 normalization, ViT-B over a ResNetV2-50 stem; the
+    KITTI / NYU variants invert to metric depth with their published scale
+    and shift, times 256 / 1000 (:244-248), and are only pushed back."""
+
+    name = "dpt_hybrid"
+    manifest = "dpt_hybrid.json"
+    mean = std = np.full(3, 0.5, np.float32)
+    VARIANTS = {
+        "dpt_hybrid": dict(scale=1.0, shift=0.0, invert=False, out_scale=1.0),
+        # depth_predictor.py:141-147 / :154-160, output scaling :244-248
+        "dpt_hybrid_kitti": dict(scale=0.00006016, shift=0.00579, invert=True,
+                                 out_scale=256.0),
+        "dpt_hybrid_nyu": dict(scale=0.000305, shift=0.1378, invert=True,
+                               out_scale=1000.0),
+    }
+
+    def __init__(self, config: Optional[DPTHybridConfig] = None, variant: str = "dpt_hybrid",
+                 size: int = 384, checkpoint_path: Optional[str] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 seed: int = 0):
+        v = self.VARIANTS[variant]
+        self.variant = variant
+        self.cfg = config or DPTHybridConfig(scale=v["scale"], shift=v["shift"],
+                                             invert=v["invert"])
+        self.out_scale = v["out_scale"]
+        self.metric = self.cfg.invert
+        self.size = size if config is None else 16 * self.cfg.pos_grid // 2
+        self._load(lambda: DPTHybrid(self.cfg), device, checkpoint_path, state_dict, seed)
+
+
+class MidasV21Predictor(_ResizedDepthPredictor):
+    """midas_v21 path of get_monocular_depth (depth_predictor.py:169-175):
+    ImageNet normalization, a side of `size` in multiples of 32, ResNeXt101
+    MidasNet, inverse depth out."""
+
+    name = "midas_v21"
+    manifest = "midas_v21.json"
+    multiple = 32
+
+    def __init__(self, config: Optional[MidasV21Config] = None, size: int = 384,
+                 checkpoint_path: Optional[str] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 seed: int = 0):
+        self.cfg = config or MidasV21Config()
+        self.size = size
+        self._load(lambda: MidasNetV21(self.cfg), device, checkpoint_path, state_dict, seed)
+
+
+class ZoeDepthPredictor(_ResizedDepthPredictor):
+    """Metric depth (get_monocular_ZoeDepth, depth_predictor.py:277-319) from
+    the single-head ZoeDepth over the ViT-L/16 DPT core, which no published
+    file holds: weights from `state_dict` or `seed`.  The reference returns
+    the metric depth raw: it is only pushed back."""
+
+    name = "zoedepth"
+    metric = True
+
+    def __init__(self, config: Optional[ZoeDepthConfig] = None, size: int = 384,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 seed: int = 0):
+        self.cfg = config or ZoeDepthConfig()
+        self.size = size
+        self.multiple = self.cfg.core.patch_size
+        self._load(lambda: ZoeDepth(self.cfg), device, None, state_dict, seed)
+
+
+class ZoeDepthNKPredictor(_ResizedDepthPredictor):
+    """The shipped ZoeD-M12-NK architecture (BEiT-384 core, two heads and the
+    latitude router) at a (height, width) `size` of (384, 512); metric depth,
+    only pushed back."""
+
+    name = "zoedepth_nk"
+    manifest = "zoedepth_nk.json"
+    metric = True
+
+    def __init__(self, config: Optional[ZoeDepthNKConfig] = None,
+                 size: Tuple[int, int] = (384, 512), checkpoint_path: Optional[str] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 seed: int = 0):
+        self.cfg = config or ZoeDepthNKConfig()
+        self.size = tuple(size)
+        self.multiple = self.cfg.core.patch_size
+        self._load(lambda: ZoeDepthNK(self.cfg), device, checkpoint_path, state_dict, seed)
 
 
 def get_depth_predictor(name: str = "depth_anything", **kw):
     """Depth-model registry (the reference's model dropdown,
-    ui_utils.py:380-411)."""
+    ui_utils.py:380-411), with the JAX registry's names and aliases."""
     if name == "depth_anything":
         return DepthAnythingPredictor(**kw)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"depth backend {name!r} is not ported to geodiffuser_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1); use 'depth_anything' or 'constant'")
+    if name in ("dpt_large", "midas"):
+        return MidasDPTPredictor(**kw)
+    if name in ("dpt_hybrid", "dpt_hybrid_kitti", "dpt_hybrid_nyu"):
+        return DPTHybridPredictor(variant=name, **kw)
+    if name == "midas_v21":
+        return MidasV21Predictor(**kw)
+    if name == "zoedepth":
+        return ZoeDepthPredictor(**kw)
+    if name in ("zoedepth_nk", "zoe_nk"):
+        return ZoeDepthNKPredictor(**kw)
     raise ValueError(f"unknown depth model {name}")

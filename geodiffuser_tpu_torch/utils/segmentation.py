@@ -43,8 +43,7 @@ class SamPredictor:
         with self.device:
             self.model = Sam(self.cfg).eval().requires_grad_(False)
         if checkpoint_path:
-            state_dict = weights_lib.read_perception_checkpoint(
-                checkpoint_path, weights_lib.SAM_UNCONSUMED)
+            state_dict = weights_lib.read_checkpoint(checkpoint_path, "sam_vit_h.json")
         if state_dict is None:
             seeded_init_(self.model, torch.Generator(self.device).manual_seed(seed), UNIT_NORMAL)
         else:

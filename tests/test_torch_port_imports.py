@@ -30,7 +30,7 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "flax", "geodiffuser_tpu", "PIL", "safetensors",
                                     "gradio"))
 print(len(names), bad)
-assert len(names) >= 54, names
+assert len(names) >= 59, names
 assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.editor",
         "geodiffuser_tpu_torch.core.edit_attention", "geodiffuser_tpu_torch.core.inversion",
         "geodiffuser_tpu_torch.utils.exp_io", "geodiffuser_tpu_torch.utils.png",
@@ -43,7 +43,10 @@ assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.edito
         "geodiffuser_tpu_torch.models.depth_anything", "geodiffuser_tpu_torch.models.sam",
         "geodiffuser_tpu_torch.utils.depth", "geodiffuser_tpu_torch.utils.segmentation",
         "geodiffuser_tpu_torch.ui.callbacks", "geodiffuser_tpu_torch.ui.serve",
-        "geodiffuser_tpu_torch.ui.__main__", "geodiffuser_tpu_torch.ui.app"} <= set(names), names
+        "geodiffuser_tpu_torch.ui.__main__", "geodiffuser_tpu_torch.ui.app",
+        "geodiffuser_tpu_torch.models.midas_dpt", "geodiffuser_tpu_torch.models.zoedepth",
+        "geodiffuser_tpu_torch.models.zoedepth_nk", "geodiffuser_tpu_torch.utils.profiling",
+        "geodiffuser_tpu_torch.utils.checkpoint"} <= set(names), names
 assert not bad, bad
 """
 

@@ -312,18 +312,6 @@ def test_depth_registry_dispatches():
     np.testing.assert_array_equal(state.depth, np.full((16, 16), 0.5, np.float32))
 
 
-@pytest.mark.parametrize("name", depth_utils.NOT_PORTED)
-def test_depth_backends_not_ported_raise(name):
-    """No other model stands in for a backend that is not ported."""
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
-        depth_utils.get_depth_predictor(name, device="cpu")
-    if name in cb.DEPTH_MODELS:
-        state = cb.UIState(device="cpu", image=_image(16, 16))
-        with pytest.raises(NotImplementedError):
-            cb.get_depth(state, name)
-        assert state.depth is None and not state.depth_predictors
-
-
 def test_page_is_the_jax_page_but_for_the_upload():
     """The one change: the upload is decoded in the browser and sent as PNG
     (the JAX page sent the file's own bytes)."""
