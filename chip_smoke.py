@@ -13,7 +13,11 @@ Phases, each of which fails the run on error:
      each backend that runs as a yardstick (bf16 flash and correlation at
      every shape the paths launch, the correlation also at the 768^2
      remover's K = 4608 rows, the splat at the stitch's 512^2 C=4, at C=3
-     and C=1 and on the stitch zoomed far out, by device time); the splat's
+     and C=1 and on the stitch zoomed far out, by device time); flash also
+     at the batch paths' shapes (B four times an edit's), the correlation
+     with the edit axis (one launch for four edits, masks (E, L) and (E, K),
+     each edit its own live rows) against the plain version of each edit
+     and against one single-edit launch per edit, timed beside them; the splat's
      every case must give equal bits in two launches and in two runs of its
      plain version, and the stitch composite in two runs;
   3. runs one full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent)
@@ -64,7 +68,21 @@ Phases, each of which fails the run on error:
      just after, save and load; the served edit and inpaint against direct
      `EditSession.run`s (equal bits); tiny float32 SAM, Depth Anything and
      the five other depth models on the card against the CPU, and one
-     `save_params` / `load_params` round trip on the card;
+     `save_params` / `load_params` round trip on the card; then the
+     lockstep batch ("batch"): a group of four editor edits (the scene
+     moved four ways), four remover edits (its object removed from four
+     places) and four stitch edits (pasted four ways) through
+     `ShardedEditSession.run_batch`, each with every launch count set to 0
+     just before and read just after, each edit against its sequential
+     `EditSession.run` from the same inversion (relative RMS of the final
+     latents, bound 0.3: bf16 rounding, witnessed by a group of copies of
+     one edit; the control, each group edit against the next edit's
+     sequential run, beyond it) and each group's flash and correlation
+     launches equal to one sequential edit's; seconds per edit and peak of
+     editor groups of 1, 2, 4 and 8; `run_folder_sweep(group_size=4)` over
+     two remover folders against the sequential sweep; the editor group at
+     full width in float32 (2 steps) against its sequential runs (bound
+     1e-3, its control beyond it);
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
 `--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
@@ -137,6 +155,11 @@ def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def rel_rms(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt().clamp_min(1e-30))
+
+
 def expect(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -176,11 +199,25 @@ def flash_path_shapes(size: int):
 # draw: 64-wide heads, 5 at the 64^2 level (down block 0, up block 3) and 10
 # at 32^2 (down block 1, up block 2); the kernels pad D 64 to their 80 variant
 DIFT_FLASH_SHAPES = [(5, 4096, 4096, 64), (10, 1024, 1024, 64)]
+# edits of a lockstep group on the batch paths (the "batch" phase): every
+# call takes the group at once, so its batch is GROUP times an edit's
+GROUP = 4
+
+
+def flash_group_shapes(size: int, group: int):
+    """bf16 flash shapes of a lockstep group of `group` edits at a size^2
+    image: each of `flash_path_shapes` with B times the group."""
+    return tuple([(b * group, lq, lk, d) for b, lq, lk, d in shapes]
+                 for shapes in flash_path_shapes(size))
+
+
 # each checked and timed: the 512^2 paths' shapes, then the 1024^2 paths'
-# (128^2 at D 40, 64^2 at D 80, 32^2 at D 160), then the featurizer's
+# (128^2 at D 40, 64^2 at D 80, 32^2 at D 160), then the featurizer's, then
+# the 512^2 paths' in a group of GROUP edits
 FLASH_FWD_SHAPES = (flash_path_shapes(512)[0] + flash_path_shapes(1024)[0]
-                    + DIFT_FLASH_SHAPES)
-FLASH_BWD_SHAPES = flash_path_shapes(512)[1] + flash_path_shapes(1024)[1]
+                    + DIFT_FLASH_SHAPES + flash_group_shapes(512, GROUP)[0])
+FLASH_BWD_SHAPES = (flash_path_shapes(512)[1] + flash_path_shapes(1024)[1]
+                    + flash_group_shapes(512, GROUP)[1])
 # float32 (CUDA-core kernels, the card-vs-CPU edits' type): a shape of each
 # class at each head width
 FLASH_F32_FWD = [(16, 4096, 4096, 40), (16, 1024, 1024, 80), (8, 1024, 4096, 40),
@@ -856,7 +893,9 @@ LARGE = 1024                     # image side of the large editor and remover ed
 # removal loss and its cross layers the kernel
 FOUR = {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None}
 PATH_KERNELS = {"editor": FOUR, "remover": FOUR, "stitch": dict(FOUR, splat_fused=1),
-                "options": FOUR, "editor1024": FOUR, "remover1024": FOUR}
+                "options": FOUR, "editor1024": FOUR, "remover1024": FOUR,
+                "batch_editor": FOUR, "batch_remover": FOUR,
+                "batch_stitch": dict(FOUR, splat_fused=GROUP)}
 # the options edit: 4 steps, whose one optimize step (i = 2: i >= 0.2 n,
 # i < 0.65 n) is the fast start's, with two inner iterations
 OPTIONS_CFG = dict(num_ddim_steps=4, fast_start_steps=0.2, num_first_optim_steps=2,
@@ -1040,10 +1079,11 @@ def report_profile(path: str, prof, wall_s: float) -> None:
             log(f"profile {path}: {ms:10.1f} ms {100 * ms / busy_ms:5.1f}% {n:6d}x {name[:90]}")
 
 
-def scene_live_rows(size: int, mode: str) -> dict:
+def scene_live_rows(size: int, mode: str, mask=None, transform=None) -> dict:
     """Live removal-loss rows of the scene in `mode` at the two loss
     resolutions, {64: n, 32: n} at 512^2 (what the corr kernels' work
-    depends on)."""
+    depends on); `mask` and `transform` replace the scene's (a group's
+    edits)."""
     import torch
 
     from geodiffuser_tpu_torch.config import EditConfig
@@ -1053,10 +1093,12 @@ def scene_live_rows(size: int, mode: str) -> dict:
     from geodiffuser_tpu_torch.ops import transform_field as tf_ops
 
     cfg = EditConfig()
-    image, depth, mask = build_scene(size)
+    image, depth, scene_mask = build_scene(size)
+    mask = scene_mask if mask is None else mask
     f32 = dict(dtype=torch.float32, device="cuda")
     mask_t = (torch.as_tensor(mask, **f32) > 0.5).float()
-    transform = camera.compose_transform(**EDITOR_TRANSFORM) if mode == "editor" else np.eye(4)
+    if transform is None:
+        transform = camera.compose_transform(**EDITOR_TRANSFORM) if mode == "editor" else np.eye(4)
     tf = tf_ops.build_transform_field(
         torch.as_tensor(image.astype(np.float32) / 255.0, **f32), torch.as_tensor(depth, **f32),
         mask_t, torch.as_tensor(transform, **f32))
@@ -1853,6 +1895,482 @@ def run_ui(args, pipe, card: str, tmp: str, root: str):
         shapes[key] = shapes.get(key, 0) + n
     return launches, shapes
 
+# ---------------------------------------------------------------------------
+# The lockstep batch
+# ---------------------------------------------------------------------------
+
+# the group's edits: the scene moved four ways (editor), its object removed
+# from four places (remover: the mask rolled by these (rows, columns) at
+# 512^2) and pasted four ways onto the seeded background (stitch)
+BATCH_EDITOR_TRANSFORMS = (EDITOR_TRANSFORM, dict(tx=-0.06, ry=-10.0), dict(ty=0.06, rz=10.0),
+                           dict(tx=0.05, sx=1.15, sy=1.15))
+BATCH_REMOVER_SHIFTS = ((0, 0), (-60, 40), (-120, 0), (40, -80))
+BATCH_STITCH_TRANSFORMS = (STITCH_TRANSFORM, dict(tx=-0.1), dict(ty=0.08),
+                           dict(tx=0.05, ty=-0.05))
+# relative RMS of each group edit's final latents against the sequential run
+# of the same edit from the same inversion.  In bf16 at full width the two
+# round apart: the group's convolutions, products and flash row tiles run at
+# E times the batch, and 6 denoising steps of the random-weight UNet under
+# guidance carry that rounding (2^-8) to 0.11-0.19, with the update off as
+# with it on (measured on an H100).  bf16 rounding on the card also depends
+# on a row's place in a batch's products: a group of GROUP copies of one
+# editor edit, identical inputs, spreads as far (~0.1 between its copies,
+# the witness printed), while a group of one is `run` itself (one loop).
+# The bound on the gap is 0.3; each group edit against the next edit's
+# sequential run (the control) must lie beyond it (0.42-0.95 on an H100).
+# The bound is 0.4 on each group-sweep result image
+# against the sequential sweep's (the random-weight VAE roughly doubles a
+# latent gap).  In float32 (`float32_group`) rounding is ~1e-7 and
+# the bound 1e-3, with the update off (with it on, an optimize step turns
+# rounding into other updates: the L1 losses' gradient is the sign of each
+# residual, and residuals at rounding level take either sign; the CPU tests
+# hold that case)
+BATCH_REL_RMS = 0.3
+SWEEP_IMAGE_REL_RMS = 0.4
+# the editor group at full width in float32 (FLOAT32_STEPS steps, the
+# update off) against each edit's sequential run: there the rounding is
+# ~1e-7 and the bound 1e-3 (final latents' relative RMS; loss logs but the
+# removal terms, whose argmax over bf16-rounded maps may flip on a near-tie,
+# and their total); each group edit against the next edit's sequential run
+# (the control: another edit's masks, taps or warp) must lie beyond it
+FLOAT32_STEPS = 2
+FLOAT32_BATCH_REL = 1e-3
+# group sizes of the packing measurement (the editor, no inversion cache)
+PACKING = (1, 2, 4, 8)
+BATCH_PATHS = {"batch_editor": "geometry_editor", "batch_remover": "geometry_remover",
+               "batch_stitch": "geometry_stitch"}
+
+
+def batch_config(args, path: str, **kw):
+    from geodiffuser_tpu_torch.config import EditConfig
+
+    return EditConfig(edit_type=BATCH_PATHS[path], num_ddim_steps=args.steps, **kw)
+
+
+def batch_raw(args, path: str, n: int = GROUP) -> list:
+    """The raw inputs of n edits on a batch path, the i-th the (i % 4)-th
+    variant: (image, depth, mask, transform), a stitch's with its
+    background."""
+    from geodiffuser_tpu_torch.ops import camera
+
+    image, depth, mask = build_scene(SIZE)
+    out = []
+    for i in range(n):
+        v = i % GROUP
+        if path == "batch_editor":
+            out.append((image, depth, mask, camera.compose_transform(**BATCH_EDITOR_TRANSFORMS[v])))
+        elif path == "batch_remover":
+            out.append((image, depth, np.roll(mask, BATCH_REMOVER_SHIFTS[v], axis=(0, 1)),
+                        np.eye(4)))
+        else:
+            out.append((image, depth, mask, camera.compose_transform(**BATCH_STITCH_TRANSFORMS[v]),
+                        stitch_background(args.seed)))
+    return out
+
+
+def batch_inputs(cfg, path: str, raw) -> list:
+    """(image, depth, mask, transform) of each edit; a stitch's is its
+    pre-composite (one splat), run as an identity edit, as perform_stitch
+    runs it."""
+    from geodiffuser_tpu_torch.core.editor import stitch_composite
+
+    if path != "batch_stitch":
+        return list(raw)
+    out = []
+    for image, depth, mask, transform, background in raw:
+        comp, warped = stitch_composite(cfg, background, image, mask, depth, transform)
+        out.append((comp, np.full(comp.shape[:2], 0.5, np.float32), warped, np.eye(4)))
+    return out
+
+
+def batch_live_rows(args) -> dict:
+    """Live removal-loss rows of each edit of the editor and remover groups,
+    {(path, latent side): [n of each edit]} (the group correlation's work)."""
+    live = {}
+    for path in ("batch_editor", "batch_remover"):
+        mode = "editor" if path == "batch_editor" else "remover"
+        per = [scene_live_rows(SIZE, mode, mask=m, transform=t)
+               for _, _, m, t in batch_raw(args, path)]
+        for side in per[0]:
+            live[path, side] = [p[side] for p in per]
+    return live
+
+
+def corr_group_shapes(group: int = GROUP) -> list:
+    """(path, H, K, L, Lk, D) of the removal correlation on the editor's and
+    remover's batch paths: their 512^2 shapes with the heads of every edit
+    (the stitch's are the editor's)."""
+    return [(f"batch_{mode}", h * group, k, l, lk, d) for mode in ("editor", "remover")
+            for h, k, l, lk, d in corr_path_shapes(512, mode)]
+
+
+def check_corr_group(rng_seed: int, live: dict, rec: dict) -> None:
+    """The correlation kernels with the edit axis (one launch for a group of
+    GROUP edits, masks (E, L) and (E, K), each edit its own live rows)
+    against the plain version of each edit and against one single-edit
+    launch per edit, with check_corr's tolerances, at every group shape of
+    the batch paths; bf16, timed by device time beside the single-edit
+    launches, added to `rec`'s shapes with their bound."""
+    import torch
+
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed + 7)
+    fwd_plain = lambda *a: by_chunks(lambda qe, ke, qb, kb: rc.corr_fwd_plain(
+        qe, ke, qb, kb, *a[4:]), a[0].shape[0], *a[:4])
+    bwd_plain = lambda *a: by_chunks(rc.corr_bwd_plain, a[0].shape[0], *a)
+    dt = torch.bfloat16
+    for path, h, kr, l, lk, d in corr_group_shapes():
+        lives = [min(n, kr) for n in live[path, math.isqrt(l)]]
+        e = len(lives)
+        hpe = h // e
+        heads = [slice(i * hpe, (i + 1) * hpe) for i in range(e)]
+        qe, ke, qb, kb = (torch.randn(h, n, d, device="cuda", generator=g).to(dt)
+                          for n in (kr, lk, l, lk))
+        inp = (torch.rand(e, l, device="cuda", generator=g) < 0.1).float()
+        bg = ((torch.rand(e, l, device="cuda", generator=g) < 0.8) & (inp < 0.5)).float()
+        rm = torch.stack([(torch.arange(kr, device="cuda") < n).float() for n in lives])
+        scale = d ** -0.5
+        name = f"{(h, kr, l, lk, d)} edits {e} live {lives}"
+        got = rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale)
+        one = [rc.corr_fwd_cuda(qe[s], ke[s], qb[s], kb[s], inp[i], bg[i], rm[i], scale)
+               for i, s in enumerate(heads)]
+        ref = [fwd_plain(qe[s], ke[s], qb[s], kb[s], inp[i], bg[i], rm[i], scale)
+               for i, s in enumerate(heads)]
+        torch.cuda.synchronize()
+        e_p, e_one, same, same_one, e_lse = 0.0, 0.0, 1.0, 1.0, 0.0
+        dead_ok = True
+        for i, (s, n) in enumerate(zip(heads, lives)):
+            for m in (0, 1):
+                e_p = max(e_p, rel_err(got[m][s, :n], ref[i][m][:, :n]))
+                e_one = max(e_one, rel_err(got[m][s, :n], one[i][m][:, :n]))
+            for m in (2, 3):
+                same = min(same, float((got[m][s, :n] == ref[i][m][:, :n]).float().mean()))
+                same_one = min(same_one, float((got[m][s, :n] == one[i][m][:, :n]).float().mean()))
+            dead_ok &= all(bool((got[m][s, n:] == v).all())
+                           for m, v in ((0, rc.NEG_INF), (1, rc.NEG_INF), (2, 0), (3, 0)))
+            live_ch = min(kr, -(-n // 64) * 64)
+            e_lse = max(e_lse, abs_err(got[4][s, :live_ch], ref[i][4][:, :live_ch]),
+                        abs_err(got[5][s], ref[i][5]))
+        bits = all(torch.equal(got[m][s], one[i][m]) for i, s in enumerate(heads)
+                   for m in range(4))
+        log(f"corr_fwd bf16 group {name}: rel err p vs plain {e_p:.2e}, vs single-edit "
+            f"launches {e_one:.2e} (equal bits {bits}); j equal plain {same:.4f}, single "
+            f"{same_one:.4f}; lse abs err {e_lse:.2e}; dead rows ok {dead_ok}")
+        expect(e_p <= 1e-2 and e_one <= 1e-2 and same >= 0.98 and same_one >= 0.98
+               and e_lse <= 1e-3 and dead_ok, f"corr_fwd group {name}")
+        # backward from the plain forward's indices and LSEs, the group's
+        # launch against the plain version and the single-edit launches
+        cat = lambda m: torch.cat([r[m] for r in ref])
+        g_in = torch.where(rm.repeat_interleave(hpe, 0) > 0.5,
+                           torch.randn(h, kr, device="cuda", generator=g), 0)
+        g_bg = torch.where(rm.repeat_interleave(hpe, 0) > 0.5,
+                           torch.randn(h, kr, device="cuda", generator=g), 0)
+        need_dke = path == "batch_editor"
+        bwd = lambda **kw: rc.corr_bwd_cuda(qe, ke, qb, kb, cat(2), cat(3), g_in, g_bg, rm,
+                                            cat(4), cat(5), scale, **kw)
+        bgot = bwd()
+        bone = [rc.corr_bwd_cuda(qe[s], ke[s], qb[s], kb[s], ref[i][2], ref[i][3], g_in[s],
+                                 g_bg[s], rm[i], ref[i][4], ref[i][5], scale)
+                for i, s in enumerate(heads)]
+        bref = [bwd_plain(qe[s], ke[s], qb[s], kb[s], ref[i][2], ref[i][3], g_in[s], g_bg[s],
+                          rm[i], ref[i][4], ref[i][5], scale) for i, s in enumerate(heads)]
+        torch.cuda.synchronize()
+        errs = [max(rel_err(bgot[m][s], r[m]) for s, r in zip(heads, bref)) for m in (0, 1)]
+        errs_one = [max(rel_err(bgot[m][s], r[m]) for s, r in zip(heads, bone)) for m in (0, 1)]
+        log(f"corr_bwd bf16 group {name}: rel err d_qe/d_ke vs plain {errs[0]:.2e} "
+            f"{errs[1]:.2e}, vs single-edit launches {errs_one[0]:.2e} {errs_one[1]:.2e} "
+            f"(tol {TOL['bf16']:.1e})")
+        expect(max(errs + errs_one) <= TOL["bf16"], f"corr_bwd group {name}")
+        ms = device_ms(lambda: rc.corr_fwd_cuda(qe, ke, qb, kb, inp, bg, rm, scale))
+        single_ms = device_ms(lambda: [rc.corr_fwd_cuda(qe[s], ke[s], qb[s], kb[s], inp[i], bg[i],
+                                                        rm[i], scale)
+                                       for i, s in enumerate(heads)])
+        plain = device_ms(lambda: [fwd_plain(qe[s], ke[s], qb[s], kb[s], inp[i], bg[i], rm[i],
+                                             scale) for i, s in enumerate(heads)], 1)
+        live_sum = sum(lives)
+        nb = 2 * (live_sum * d * hpe + (2 * lk * d + l * d) * h) + 8 * e * l + 4 * e * kr \
+            + 16 * h * kr
+        ops = 2 * hpe * (live_sum + e * l) * lk * d + 2 * hpe * live_sum * l * lk
+        rec["corr_fwd"]["shapes"].append(dict(
+            shape=[h, kr, l, lk, d], path=path, live_rows=live_sum, edits=e, ms=ms,
+            single_edit_ms=single_ms, plain_ms=plain, library_ms=None,
+            bound=bound_ms(nb, ops, "bf16"),
+            max_abs_err=max(abs_err(got[m][s, :n], ref[i][m][:, :n])
+                            for i, (s, n) in enumerate(zip(heads, lives)) for m in (0, 1))))
+        b_ms = device_ms(lambda: bwd(need_dke=need_dke))
+        b_single = device_ms(lambda: [rc.corr_bwd_cuda(
+            qe[s], ke[s], qb[s], kb[s], ref[i][2], ref[i][3], g_in[s], g_bg[s], rm[i],
+            ref[i][4], ref[i][5], scale, need_dke=need_dke) for i, s in enumerate(heads)])
+        b_plain = device_ms(lambda: [bwd_plain(qe[s], ke[s], qb[s], kb[s], ref[i][2], ref[i][3],
+                                               g_in[s], g_bg[s], rm[i], ref[i][4], ref[i][5],
+                                               scale) for i, s in enumerate(heads)], 1)
+        nb = 2 * hpe * d * (3 * live_sum + 2 * e * lk) + 8 * hpe * live_sum + 4 * e * kr \
+            + 4 * hpe * d * (live_sum + e * lk)
+        rec["corr_bwd"]["shapes"].append(dict(
+            shape=[h, kr, l, lk, d], path=path, live_rows=live_sum, edits=e, ms=b_ms,
+            path_ms=b_ms, single_edit_ms=b_single, plain_ms=b_plain, library_ms=None,
+            bound=bound_ms(nb, 10 * hpe * live_sum * lk * d, "bf16"),
+            max_abs_err=max(abs_err(bgot[m][s], r[m]) for s, r in zip(heads, bref)
+                            for m in (0, 1))))
+        log(f"corr bf16 group {name} ({path}): fwd {ms:.4f} ms ({e} single-edit launches "
+            f"{single_ms:.4f}, plain {plain:.4f}, bound "
+            f"{rec['corr_fwd']['shapes'][-1]['bound'][0]:.4f}), bwd {b_ms:.4f} ms (single-edit "
+            f"{b_single:.4f}, plain {b_plain:.4f}, bound "
+            f"{rec['corr_bwd']['shapes'][-1]['bound'][0]:.4f})")
+    for r in rec.values():
+        r["max_abs_err"] = max(sh["max_abs_err"] for sh in r["shapes"])
+
+
+def reset_counts() -> None:
+    import torch
+
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+
+    for counts in launch_counts():
+        counts.update(dict.fromkeys(counts, 0))
+    fa.SHAPES.clear()
+    rc.SHAPES.clear()
+    torch.cuda.synchronize()
+
+
+def read_counts():
+    """(launches, launches by shape) since the last reset_counts."""
+    import torch
+
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+
+    torch.cuda.synchronize()
+    return ({k: v for counts in launch_counts() for k, v in counts.items()},
+            {**fa.SHAPES, **rc.SHAPES})
+
+
+def run_batch_phase(args, pipe, tmp: str) -> dict:
+    """The lockstep batch at 512^2, bf16, --steps: for each of the editor,
+    remover and stitch a group of GROUP edits through
+    `ShardedEditSession.run_batch`, with every launch count set to 0 just
+    before and read just after; each edit held against its sequential
+    `EditSession.run` from the same inversion (the sequential run writes it
+    to the edit's folder, the group reads it): the final latents' relative
+    RMS, and the group's flash and correlation launches against one
+    sequential edit's without its inversion; the editor's also as a group
+    of copies of one edit (the rounding witness).  Then seconds per edit and peak of editor groups of
+    1, 2, 4 and 8 edits (each inverting), and `run_folder_sweep` with
+    `group_size=GROUP` over two remover folders (a group and its pads)
+    against the sequential sweep of the same folders (the update off), and
+    the editor group at full width in float32 (`float32_group`).  Returns
+    {path: (launches, launches by shape)}."""
+    import torch
+
+    from geodiffuser_tpu_torch.core import inversion
+    from geodiffuser_tpu_torch.core.editor import EditSession
+    from geodiffuser_tpu_torch.parallel import driver
+    from geodiffuser_tpu_torch.parallel.batch import ShardedEditSession
+    from geodiffuser_tpu_torch.utils import exp_io, png
+
+    t_phase = time.time()
+    stack = lambda ins: [np.stack([x[k] for x in ins]) for k in range(4)]
+    torch.cuda.empty_cache()
+    # what earlier phases left allocated: every peak below counts it
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"batch phase: {resident:.2f} GiB allocated when it starts (the pipeline and what "
+        f"earlier phases keep)")
+    runs = {}
+    for path in BATCH_PATHS:
+        raw = batch_raw(args, path)
+        folders = [tempfile.mkdtemp(dir=tmp, prefix=f"{path}_") for _ in raw]
+        cfg = batch_config(args, path)
+        inputs = batch_inputs(cfg, path, raw)
+        # the sequential runs invert and write each edit's trajectory to its
+        # folder; the first's launches without its inversion's are one
+        # edit's as the group runs it (reading the trajectories)
+        t0 = time.time()
+        seq, inv_counts = [], []
+        invert = inversion.ddim_invert
+
+        def counted_invert(*a, **kw):
+            before = {k: v for c in launch_counts() for k, v in c.items()}
+            out = invert(*a, **kw)
+            inv_counts.append({k: v - before[k] for c in launch_counts() for k, v in c.items()})
+            return out
+
+        for j, ins in enumerate(inputs):
+            reset_counts()
+            inversion.ddim_invert = counted_invert
+            try:
+                seq.append(EditSession(pipe, cfg).run(*ins, exp_folder=folders[j]))
+            finally:
+                inversion.ddim_invert = invert
+            if j == 0:
+                seq_counts = {k: v - inv_counts[0][k] for k, v in read_counts()[0].items()}
+        seq_s = time.time() - t0
+        sess = ShardedEditSession(pipe, cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        res = sess.run_batch(*stack(batch_inputs(cfg, path, raw)), exp_folders=folders)
+        launches, shapes = read_counts()
+        group_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gaps, ctrl = group_gaps(res, seq)
+        log(f"{path} ({SIZE}^2, {args.steps} DDIM steps, {len(inputs)} edits, inversions read "
+            f"from the folders): group {group_s:.3f} s "
+            f"({json.dumps({k: round(v, 3) for k, v in res.timings.items()})}), peak "
+            f"{peak:.2f} GiB; sequential {seq_s:.3f} s")
+        log(f"{path}: final latents' relative RMS to each sequential run "
+            f"{' '.join(f'{x:.2e}' for x in gaps)} (bound {BATCH_REL_RMS:g}); control, to the "
+            f"next edit's sequential run {' '.join(f'{x:.2e}' for x in ctrl)}")
+        if path == "batch_editor":   # the rounding witness: identical edits in one group
+            copies = sess.run_batch(*stack(inputs[:1] * len(inputs)),
+                                    exp_folders=folders[:1] * len(inputs))
+            spread = [rel_rms(copies.latents[j], copies.latents[0]) for j in range(len(seq))]
+            log(f"{path}: a group of {len(inputs)} copies of edit 0: relative RMS of each copy "
+                f"to copy 0 {' '.join(f'{x:.2e}' for x in spread)}, copy 0 to the group's edit 0 "
+                f"{rel_rms(copies.latents[0], res.latents[0]):.2e}")
+            expect(max(spread) <= BATCH_REL_RMS, f"{path}: copies of one edit")
+            del copies
+        log(f"{path}: kernel launches {launches}; one sequential edit's without its inversion "
+            f"{seq_counts}")
+        log(f"{path}: flash and corr launches by shape {shape_counts(shapes)}")
+        expect(res.images.shape == (len(seq), 2, SIZE, SIZE, 3)
+               and bool(torch.isfinite(res.latents).all())
+               and all(math.isfinite(v) for lg in res.loss_log.values() for v in
+                       np.concatenate(list(lg.values()))), f"{path}: finite results")
+        expect(max(gaps) <= BATCH_REL_RMS < min(ctrl),
+               f"{path}: group edits against their sequential runs, the control beyond the bound")
+        for name, want in PATH_KERNELS[path].items():
+            ok = launches[name] > 0 if want is None else launches[name] == want
+            expect(ok, f"{path}: kernel {name} launched {launches[name]} times on the path")
+        for name in ("flash_fwd", "flash_bwd", "corr_fwd", "corr_bwd"):
+            expect(launches[name] == seq_counts[name],
+                   f"{path}: {name} launches of the group {launches[name]}, of one edit "
+                   f"{seq_counts[name]}")
+        runs[path] = (launches, shapes)
+        del seq, res
+
+    # seconds per edit and peak by group size (each group inverts)
+    cfg = batch_config(args, "batch_editor", cache_inversion=False)
+    raw = batch_raw(args, "batch_editor", max(PACKING))
+    packing = []
+    for n in PACKING:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sess = ShardedEditSession(pipe, cfg)
+        t0 = time.time()
+        res = sess.run_batch(*stack(raw[:n]))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        packing.append(dict(edits=n, seconds=dt, sec_per_edit=dt / n, peak_gib=peak,
+                            peak_above_start_gib=peak - resident,
+                            timings={k: round(v, 4) for k, v in res.timings.items()}))
+        expect(bool(torch.isfinite(res.latents).all()), f"packing {n}: finite latents")
+        del res
+    for p in packing:
+        log(f"batch packing (editor, {SIZE}^2, {args.steps} steps): {p['edits']} edits "
+            f"{p['seconds']:.3f} s, {p['sec_per_edit']:.3f} s an edit, peak "
+            f"{p['peak_gib']:.2f} GiB ({p['peak_above_start_gib']:.2f} above the phase's "
+            f"start), timings {json.dumps(p['timings'])}")
+    log(json.dumps({"batch_packing": packing, "steps": args.steps}))
+
+    # the driver's group sweep against its sequential sweep, from the
+    # inversions the sequential sweep cached
+    image, depth, mask = build_scene(SIZE)
+    root, root_g = os.path.join(tmp, "batch_exps"), os.path.join(tmp, "batch_exps_group")
+    for j, shift in enumerate(BATCH_REMOVER_SHIFTS[:2]):
+        exp_io.save_exp(os.path.join(root, "Removal", str(j)), image, depth,
+                        np.roll(mask, shift, axis=(0, 1)), np.eye(4))
+    overrides = dict(num_ddim_steps=args.steps, lr=0.0)
+    t0 = time.time()
+    seq_times = driver.run_folder_sweep(root, pipe=pipe, config_overrides=overrides,
+                                        use_native=True)
+    seq_s = time.time() - t0
+    shutil.copytree(root, root_g)
+    reset_counts()
+    t0 = time.time()
+    group_times = driver.run_folder_sweep(root_g, pipe=pipe, group_size=GROUP,
+                                          config_overrides=overrides, use_native=True,
+                                          skip_existing=False)
+    launches, shapes = read_counts()
+    group_s = time.time() - t0
+    gaps = {}
+    for folder in seq_times:
+        rel = os.path.relpath(folder, root)
+        a, b = (torch.as_tensor(png.read_png(os.path.join(r, rel, "result_ls.png")).astype(
+            np.float32)) for r in (root, root_g))
+        gaps[rel] = rel_rms(b, a)
+    log(f"batch driver sweep (group_size {GROUP}, {len(group_times)} folders, one group and "
+        f"two pads, update off): "
+        f"{group_s:.2f} s, edits (s) {json.dumps({os.path.relpath(k, root_g): round(v, 3) for k, v in group_times.items()})}; "
+        f"sequential sweep {seq_s:.2f} s, edits (s) "
+        f"{json.dumps({os.path.relpath(k, root): round(v, 3) for k, v in seq_times.items()})}")
+    log(f"batch driver sweep: result images' relative RMS to the sequential sweep's "
+        f"{json.dumps({k: round(v, 5) for k, v in gaps.items()})} (bound {SWEEP_IMAGE_REL_RMS:g}); "
+        f"kernel launches {launches}")
+    expect(sorted(os.path.relpath(f, root_g) for f in group_times)
+           == sorted(os.path.relpath(f, root) for f in seq_times) and len(seq_times) == 2,
+           "batch driver sweep: the two folders")
+    expect(max(gaps.values()) <= SWEEP_IMAGE_REL_RMS,
+           "batch driver sweep against the sequential sweep")
+    for name in ("flash_fwd", "flash_bwd", "corr_fwd", "corr_bwd"):
+        expect(launches[name] > 0, f"batch driver sweep: {name} launched {launches[name]} times")
+    runs["batch_driver"] = (launches, shapes)
+    float32_group(args, tmp)
+    log(f"batch phase: {time.time() - t_phase:.1f} s")
+    return runs
+
+
+def group_gaps(group, seq):
+    """Each group edit's final latents' relative RMS to its sequential run,
+    and the control: to the next edit's sequential run."""
+    e = len(seq)
+    return ([rel_rms(group.latents[j], seq[j].latents) for j in range(e)],
+            [rel_rms(group.latents[j], seq[(j + 1) % e].latents) for j in range(e)])
+
+
+def float32_group(args, tmp: str) -> None:
+    """The batch editor group at full width (SD-1.4 `ModelConfig()`, 512^2)
+    in float32, FLOAT32_STEPS steps with the update off, through `run_batch`
+    against each edit's sequential `EditSession.run` from the same
+    inversion: final latents and loss logs within FLOAT32_BATCH_REL, the
+    control beyond it."""
+    import torch
+
+    from geodiffuser_tpu_torch.config import EditConfig, ModelConfig
+    from geodiffuser_tpu_torch.core.editor import EditSession
+    from geodiffuser_tpu_torch.core.pipeline import Pipeline
+    from geodiffuser_tpu_torch.parallel.batch import ShardedEditSession
+
+    t0 = time.time()
+    pipe = Pipeline.create(dataclasses.replace(ModelConfig(), dtype=torch.float32),
+                           image_size=SIZE, seed=args.seed, device="cuda")
+    cfg = EditConfig(num_ddim_steps=FLOAT32_STEPS, lr=0.0)
+    inputs = batch_raw(args, "batch_editor")
+    folders = [tempfile.mkdtemp(dir=tmp, prefix="batch_f32_") for _ in inputs]
+    seq = [EditSession(pipe, cfg).run(*ins, exp_folder=f) for ins, f in zip(inputs, folders)]
+    group = ShardedEditSession(pipe, cfg).run_batch(
+        *(np.stack([x[k] for x in inputs]) for k in range(4)), exp_folders=folders)
+    gaps, ctrl = group_gaps(group, seq)
+    log_err, same_steps = 0.0, True
+    for j, ref in enumerate(seq):
+        loss_log = group.edit_logs(j)[0]
+        same_steps &= sorted(loss_log) == sorted(ref.loss_log)
+        log_err = max([log_err] + [abs(loss_log[i][k] - v) / max(abs(v), 1e-3)
+                                   for i in ref.loss_log for k, v in ref.loss_log[i].items()
+                                   if "removal" not in k and k != "total"])
+    log(f"float32 batch editor (full width, {SIZE}^2, {FLOAT32_STEPS} steps, {len(seq)} edits, "
+        f"update off): final latents' relative RMS to each sequential run "
+        f"{' '.join(f'{x:.2e}' for x in gaps)}, control {' '.join(f'{x:.2e}' for x in ctrl)} "
+        f"(bound {FLOAT32_BATCH_REL:g}, the control beyond it); loss logs rel err {log_err:.2e} "
+        f"(removal and total excluded); {time.time() - t0:.1f} s")
+    expect(same_steps and max(gaps) <= FLOAT32_BATCH_REL < min(ctrl)
+           and log_err <= FLOAT32_BATCH_REL, "float32 batch editor against its sequential runs")
+    del pipe, seq, group
+    torch.cuda.empty_cache()
+
 
 def small_reference(edit_type: str):
     """Tiny float32 edit on the card against the same edit on the CPU (the
@@ -1976,6 +2494,10 @@ def main(argv=None) -> int:
                 for r, n in scene_live_rows(size, mode).items()}
         log(f"scene live rows (path, latent side): {live}")
         rec.update(check_corr(args.seed, live))
+        if args.package_root is None:   # another commit's kernels may lack the edit axis
+            group_live = batch_live_rows(args)
+            log(f"group live rows of each edit (path, latent side): {group_live}")
+            check_corr_group(args.seed, group_live, rec)
         log(f"corr checks and timings: {time.time() - t0:.1f} s")
     if not only or "splat" in only:
         t0 = time.time()
@@ -2014,6 +2536,7 @@ def main(argv=None) -> int:
         log(f"driver phase: {time.time() - t0:.1f} s")
         runs["evaluation"] = run_evaluation(args, card, tmp, root)
         runs["ui"] = run_ui(args, pipe, card, tmp, root)
+        runs.update(run_batch_phase(args, pipe, tmp))
     by_path = {path: launches for path, (launches, _) in runs.items()}
     timed = ({("flash_fwd", *shape) for shape in FLASH_FWD_SHAPES}
              | {("flash_bwd", *shape) for shape in FLASH_BWD_SHAPES}

@@ -6,8 +6,12 @@ AttentionGeometryEdit, attention_processors.py:384-624,
 AttentionGeometryRemover, :748-928, the edit losses :231-305 and the
 smoothness TV loss, loss.py:29-40).
 
-q, k, v are (S, H, L, D): S CFG streams, H heads.  Logits, softmax and
-losses are float32.  Gradient boundaries follow the reference: the base
+q, k, v are (E*S, H, L, D): E edits of a lockstep group, each with its
+block of S CFG streams, H heads (`make_edit_state` makes one edit's masks
+a group of one).  Every loss is reduced per edit, each edit's streams see
+only that edit's masks, rows and taps, and every attention and correlation
+call takes the whole group at once.  Logits, softmax and losses are
+float32.  Gradient boundaries follow the reference: the base
 stream is detached (attention_sharing.py:242), edit_out is detached, only
 replace_out carries gradient; `.detach()` stands exactly where the JAX
 package has `sg`.
@@ -63,16 +67,35 @@ def fast_attention(q, k, v, scale: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Losses (float32; masks are flattened (L,) floats)
+# Per-edit gathers (masks are (E, L) floats, rows (E, K) indices)
+# ---------------------------------------------------------------------------
+
+def _rows_of(x, rows):
+    """x (E, H, L, D) at each edit's rows (E, K) -> (E, H, K, D).  Indexing,
+    not `torch.gather`: gather's backward keeps all of x alive, a whole
+    attention map of every constrained self layer."""
+    edit = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[edit, :, rows].transpose(1, 2)
+
+
+def _pos_at(pos, idx):
+    """pos (E, L, 2) at each edit's indices idx (E, ...) -> (E, ..., 2)."""
+    flat = idx.reshape(idx.shape[0], -1).long()
+    out = torch.gather(pos, 1, flat[..., None].expand(-1, -1, 2))
+    return out.reshape(*idx.shape, 2)
+
+
+# ---------------------------------------------------------------------------
+# Losses (float32; each returns (E,), one loss per edit)
 # ---------------------------------------------------------------------------
 
 def background_preservation_loss(edit_out, replace_out, mask_bg, eps: float = 1e-8):
     """Masked L1 between the detached shared output and the live edit
     output over the background (attention_processors.py:231-246)."""
     diff = torch.abs(edit_out.detach().float() - replace_out.float())
-    num = (diff * mask_bg[None, :, None]).sum()
-    h, _, d = replace_out.shape
-    return num / (mask_bg.sum() * h * d + eps)
+    num = (diff * mask_bg[:, None, :, None]).sum((1, 2, 3))
+    _, h, _, d = replace_out.shape
+    return num / (mask_bg.sum(-1) * h * d + eps)
 
 
 def object_placement_loss(edit_out, replace_out, mask_edit, eps: float = 1e-8):
@@ -81,79 +104,93 @@ def object_placement_loss(edit_out, replace_out, mask_edit, eps: float = 1e-8):
 
 
 def _removal_per_row_loss(p_in, p_bg, d_bg, row_mask, inpaint_sum, h, eps=1e-4):
-    """Distance-weighted log-ratio reduction (attention_processors.py:263-268)."""
+    """Distance-weighted log-ratio reduction (attention_processors.py:263-268)
+    of (E, H, K) maxima."""
     w = torch.exp(-d_bg).detach()
     per_row = w * (-torch.log(torch.clamp(p_bg, min=0.0) + eps)
                    + torch.log(torch.clamp(p_in, min=0.0) + eps))
-    return (per_row * row_mask[None, :]).sum() / (inpaint_sum * h + 1e-8)
+    return (per_row * row_mask[:, None, :]).sum((1, 2)) / (inpaint_sum * h + 1e-8)
+
+
+def _bg_distance(ms: MaskSet, j_bg):
+    """Distance from each budgeted inpaint row to its argmax background row
+    j_bg (E, H, K)."""
+    rows_pos = _pos_at(ms.pos, ms.inpaint_rows)[:, None]
+    return torch.sqrt(((rows_pos - _pos_at(ms.pos, j_bg)) ** 2).sum(-1) + 1e-12)
 
 
 def removal_loss_fused(q_e, k_r, q_b, k_b, ms: MaskSet, scale: float) -> torch.Tensor:
     """Removal correlation loss through the fused kernel (no attention map
     or correlation matrix in device memory; attention_processors.py:248-280
-    under the static row budget)."""
-    h = q_e.shape[0]
-    rows, row_mask = ms.inpaint_rows, ms.inpaint_row_mask
-    qe_rows = q_e[:, rows]
+    under the static row budget); one launch for the group, the heads of
+    edit e reading edit e's masks."""
+    e, h = q_e.shape[:2]
+    k = ms.inpaint_rows.shape[1]
+    flat = lambda x: x.reshape(e * h, *x.shape[2:])
     p_in, p_bg, _, j_bg = rc.removal_correlation(
-        qe_rows, k_r, q_b.detach(), k_b.detach(), ms.inpaint, ms.background, row_mask, scale
-    )
-    d_bg = torch.sqrt(((ms.pos[rows][None] - ms.pos[j_bg.long()]) ** 2).sum(-1) + 1e-12)
-    return _removal_per_row_loss(p_in, p_bg, d_bg, row_mask, ms.inpaint.sum(), h)
+        flat(_rows_of(q_e, ms.inpaint_rows)), flat(k_r), flat(q_b.detach()), flat(k_b.detach()),
+        ms.inpaint, ms.background, ms.inpaint_row_mask, scale)
+    p_in, p_bg, j_bg = (x.reshape(e, h, k) for x in (p_in, p_bg, j_bg))
+    return _removal_per_row_loss(p_in, p_bg, _bg_distance(ms, j_bg), ms.inpaint_row_mask,
+                                 ms.inpaint.sum(-1), h)
 
 
 def removal_loss(probs_rows, base_probs, ms: MaskSet) -> torch.Tensor:
     """The removal correlation loss from materialized maps: probs_rows
-    (H, K, L) are the edit stream's probabilities at the budgeted inpaint
-    rows, base_probs (H, L, L) the base stream's (attention_processors.py:
+    (E, H, K, L) are the edit stream's probabilities at the budgeted inpaint
+    rows, base_probs (E, H, L, L) the base stream's (attention_processors.py:
     248-280).  Used only with the attention constraints, where the maps
     exist anyway; `removal_loss_fused` otherwise."""
-    h = probs_rows.shape[0]
-    rows, row_mask = ms.inpaint_rows, ms.inpaint_row_mask
+    h = probs_rows.shape[1]
     corr = torch.matmul(probs_rows.float(), base_probs.detach().float().transpose(-1, -2))
     neg = torch.tensor(-1e9, dtype=torch.float32, device=corr.device)
-    corr_in = torch.where(ms.inpaint[None, None, :] > 0.5, corr, neg)
-    corr_bg = torch.where(ms.background[None, None, :] > 0.5, corr, neg)
+    corr_in = torch.where(ms.inpaint[:, None, None, :] > 0.5, corr, neg)
+    corr_bg = torch.where(ms.background[:, None, None, :] > 0.5, corr, neg)
     # amax splits the gradient between tied maxima, as jnp.max does
     p_in = torch.amax(corr_in, dim=-1)
     p_bg = torch.amax(corr_bg, dim=-1)
     j_bg = torch.argmax(corr_bg, dim=-1)
-    d_bg = torch.sqrt(((ms.pos[rows][None] - ms.pos[j_bg]) ** 2).sum(-1) + 1e-12)
-    return _removal_per_row_loss(p_in, p_bg, d_bg, row_mask, ms.inpaint.sum(), h)
+    return _removal_per_row_loss(p_in, p_bg, _bg_distance(ms, j_bg), ms.inpaint_row_mask,
+                                 ms.inpaint.sum(-1), h)
 
 
 def smooth_attention_features(features: torch.Tensor) -> torch.Tensor:
-    """5x5 Gaussian blur of per-head feature maps (generic_torch.py:145-154)."""
-    h, l, d = features.shape
+    """5x5 Gaussian blur of per-head feature maps (..., L, D)
+    (generic_torch.py:145-154)."""
+    *lead, l, d = features.shape
     res = math.isqrt(l)
-    maps = features.permute(0, 2, 1).reshape(h * d, res, res)
+    maps = features.transpose(-1, -2).reshape(-1, res, res)
     maps = image_ops.gaussian_smooth_2d(maps, size=5)
-    return maps.reshape(h, d, l).permute(0, 2, 1)
+    return maps.reshape(*lead, d, l).transpose(-1, -2)
 
 
 def amodal_loss(edit_out, replace_out, ms: MaskSet, eps: float = 1e-8):
     """Fill the amodal ring by nearest-foreground interpolation and pull the
     edit output toward it (attention_processors.py:289-305)."""
     e = edit_out.detach().float()
-    feats = e[:, ms.interp_idx, :]                              # (H, L, 4, D)
+    n, h, l, d = e.shape
+    # each edit's 4 interpolation sources per row: (E, L, 4, H, D)
+    rows = e.transpose(1, 2).reshape(n, l, h * d)
+    idx = ms.interp_idx.reshape(n, -1)
+    feats = torch.gather(rows, 1, idx[..., None].expand(-1, -1, h * d)).reshape(n, l, 4, h, d)
     vals = ms.interp_vals
-    interp = (feats * vals[None, :, :, None]).sum(-2) / (vals.sum(-1)[None, :, None] + 1e-12)
+    interp = ((feats * vals[..., None, None]).sum(2)
+              / (vals.sum(-1)[..., None, None] + 1e-12)).transpose(1, 2)
     w = ms.interp_w
-    interp = torch.where((ms.mask_new_warped > 0.5)[None, :, None], e, interp)
+    interp = torch.where((ms.mask_new_warped > 0.5)[:, None, :, None], e, interp)
     interp = smooth_attention_features(interp)
     diff = torch.abs(interp.detach() - replace_out.float())
-    wm = (w * ms.amodal)[None, :, None]
-    h, _, d = replace_out.shape
-    return (diff * wm).sum() / ((w * ms.amodal).sum() * h * d + eps)
+    wm = (w * ms.amodal)[:, None, :, None]
+    return (diff * wm).sum((1, 2, 3)) / ((w * ms.amodal).sum(-1) * h * d + eps)
 
 
 def smoothness_loss(replace_out: torch.Tensor) -> torch.Tensor:
     """Total variation over the spatial grid (loss.py:29-40)."""
-    h, l, d = replace_out.shape
+    n, h, l, d = replace_out.shape
     res = math.isqrt(l)
-    r = replace_out.float().reshape(h, res, res, d)
-    dh = torch.abs(r[:, 1:] - r[:, :-1]).mean()
-    dw = torch.abs(r[:, :, 1:] - r[:, :, :-1]).mean()
+    r = replace_out.float().reshape(n, h, res, res, d)
+    dh = torch.abs(r[:, :, 1:] - r[:, :, :-1]).mean((1, 2, 3, 4))
+    dw = torch.abs(r[:, :, :, 1:] - r[:, :, :, :-1]).mean((1, 2, 3, 4))
     return dh + dw
 
 
@@ -163,54 +200,59 @@ def smoothness_loss(replace_out: torch.Tensor) -> torch.Tensor:
 
 def _warp_queries(q_base, ms: MaskSet, state: EditState) -> torch.Tensor:
     """q <- q*(1-m) + m*splat(q) inside the warped mask
-    (attention_processors.py:423-424, 543-545), through the dense warp
-    operator in the model type; fully detached."""
-    h, l, d = q_base.shape
+    (attention_processors.py:423-424, 543-545), through each edit's dense
+    warp operator in the model type; fully detached."""
+    n, h, l, d = q_base.shape
     res = math.isqrt(l)
-    q_img = q_base.permute(1, 0, 2).reshape(res, res, h * d)
+    q_img = q_base.transpose(1, 2).reshape(n, res, res, h * d)
     if state.warp_mats is not None and res in state.warp_mats:
         q_warp = splat_ops.apply_warp_matrix(state.warp_mats[res].to(q_img.dtype), q_img)
     else:
-        q_warp = splat_ops.splat_image(q_img.float(), ms.t_coords, radius=state.splat_radius,
-                                       tau=state.splat_tau, z_beta=state.z_beta)
+        q_warp = torch.stack([
+            splat_ops.splat_image(q.float(), tc, radius=state.splat_radius, tau=state.splat_tau,
+                                  z_beta=state.z_beta) for q, tc in zip(q_img, ms.t_coords)])
     m = ms.mask_new_warped_2d[..., None]
     out = q_img.float() * (1.0 - m) + m * q_warp.float()
-    return out.reshape(l, h, d).permute(1, 0, 2).to(q_base.dtype).detach()
+    return out.reshape(n, l, h, d).transpose(1, 2).to(q_base.dtype).detach()
 
 
 def _warp_queries_rows(q_base, ms: MaskSet, state: EditState, rows) -> torch.Tensor:
-    """`_warp_queries` over a static row budget: the operator's rows are
-    gathered before the product.  Returns (H, K, D), detached."""
-    h, l, d = q_base.shape
+    """`_warp_queries` over each edit's static row budget rows (E, K): the
+    operator's rows are gathered before the product.  Returns (E, H, K, D),
+    detached."""
+    n, h, l, d = q_base.shape
     res = math.isqrt(l)
-    q_flat = q_base.permute(1, 0, 2).reshape(l, h * d)
+    k = rows.shape[1]
+    q_flat = q_base.transpose(1, 2).reshape(n, l, h * d)
     if state.warp_mats is not None and res in state.warp_mats:
         # operands rounded to the model type, float32 result (the JAX
         # package's dot with preferred_element_type=float32)
-        w_rows = state.warp_mats[res][rows].to(q_flat.dtype).float()
-        q_warp = w_rows @ q_flat.float()
+        w_rows = torch.gather(state.warp_mats[res], 1, rows[..., None].expand(n, k, l))
+        q_warp = w_rows.to(q_flat.dtype).float() @ q_flat.float()
     else:
-        q_img = q_flat.reshape(res, res, h * d)
-        q_warp = splat_ops.splat_image(q_img.float(), ms.t_coords, radius=state.splat_radius,
-                                       tau=state.splat_tau, z_beta=state.z_beta
-                                       ).reshape(l, h * d)[rows]
-    m = ms.mask_new_warped[rows][:, None]
-    out = q_flat[rows].float() * (1.0 - m) + m * q_warp
-    k = rows.shape[0]
-    return out.reshape(k, h, d).permute(1, 0, 2).to(q_base.dtype).detach()
+        q_warp = torch.stack([
+            splat_ops.splat_image(q.reshape(res, res, h * d).float(), tc,
+                                  radius=state.splat_radius, tau=state.splat_tau,
+                                  z_beta=state.z_beta).reshape(l, h * d)[r]
+            for q, tc, r in zip(q_flat, ms.t_coords, rows)])
+    m = torch.gather(ms.mask_new_warped, 1, rows)[..., None]
+    q_rows = torch.gather(q_flat, 1, rows[..., None].expand(n, k, h * d))
+    out = q_rows.float() * (1.0 - m) + m * q_warp
+    return out.reshape(n, k, h, d).transpose(1, 2).to(q_base.dtype).detach()
 
 
 def _constraint_bias(ms: MaskSet, lk: int) -> torch.Tensor:
-    """Additive -1000 bias (L, lk) of the self-attention constraints that
-    the reference's compute_attention intends (attention_sharing.py:37-42;
-    its chained boolean indexing assigns to a copy): rows inside the warped
-    object take no keys outside the object, background rows none inside."""
+    """Additive -1000 bias of the self-attention constraints that the
+    reference's compute_attention intends (attention_sharing.py:37-42; its
+    chained boolean indexing assigns to a copy): rows inside the warped
+    object take no keys outside the object, background rows none inside.
+    (E, L, lk), each edit's own."""
     rows_fgw = ms.mask_new_warped >= 0.5
-    cols_not_fg = ms.mask_warp < 0.5
+    cols_not_fg = ms.mask_warp[..., :lk] < 0.5
     rows_bg = ms.background >= 0.5
-    cols_fg = ms.mask_warp >= 0.5
-    bias = torch.where(rows_fgw[:, None] & cols_not_fg[None, :lk], -1000.0, 0.0)
-    return bias + torch.where(rows_bg[:, None] & cols_fg[None, :lk], -1000.0, 0.0)
+    cols_fg = ms.mask_warp[..., :lk] >= 0.5
+    bias = torch.where(rows_fgw[..., :, None] & cols_not_fg[..., None, :], -1000.0, 0.0)
+    return bias + torch.where(rows_bg[..., :, None] & cols_fg[..., None, :], -1000.0, 0.0)
 
 
 def _branch_logs(is_cross: bool, **vals) -> Dict[str, torch.Tensor]:
@@ -222,19 +264,35 @@ def _branch_logs(is_cross: bool, **vals) -> Dict[str, torch.Tensor]:
     return logs
 
 
+def _streams(q, k, v, state: EditState):
+    """Each edit's detached base stream (q_b, k_b, v_b) and its edit
+    queries q_e, (E, H, L, D) each.  Contiguous: a strided stream would take
+    another matmul path than the contiguous warped queries that meet it in
+    the L1 losses, whose zero residual at step 0 must stay exactly zero."""
+    b_i, e_i = state.base_idx, state.edit_idx
+    return (q[:, b_i].detach().contiguous(), k[:, b_i].detach().contiguous(),
+            v[:, b_i].detach().contiguous(), q[:, e_i].contiguous())
+
+
+def _past_obj(state: EditState) -> bool:
+    if state.past_obj_edit is None:
+        return state.cur_step >= state.obj_edit_thresh
+    return state.past_obj_edit
+
+
 def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale: float):
     """AttentionGeometryEdit edit-stream output + losses
-    (attention_processors.py:384-624).  With the attention constraints the
-    self layers' edit attention is explicit: logits plus `_constraint_bias`,
-    the softmax in bf16, and the removal loss from those maps."""
-    b_i, e_i = state.base_idx, state.edit_idx
-    q_b, k_b, v_b = q[b_i].detach(), k[b_i].detach(), v[b_i].detach()
-    q_e = q[e_i]
+    (attention_processors.py:384-624) of every edit of the group: q, k, v
+    (E, S, H, L, D), returns (E, H, L, D), the (E,) losses and the logs.
+    With the attention constraints the self layers' edit attention is
+    explicit: logits plus `_constraint_bias`, the softmax in bf16, and the
+    removal loss from those maps."""
+    q_b, k_b, v_b, q_e = _streams(q, k, v, state)
     # live keys: self uses base keys, cross uses edit keys; values from base
-    k_r = k[e_i] if is_cross else k_b
+    k_r = k[:, state.edit_idx].contiguous() if is_cross else k_b
 
     # No-loss blend over the warped-row budget (CFG steps); the host selects
-    # full_blend when any resolution's warped mask overflows the budget.
+    # full_blend when any edit's warped mask at any resolution overflows it.
     if (not state.compute_losses and state.past_obj_edit is False
             and not state.full_blend and ms.warped_rows is not None
             and not state.apply_constraints):
@@ -242,24 +300,22 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
         q_eb_rows = _warp_queries_rows(q_b, ms, state, rows)
         edit_rows = fast_attention(q_eb_rows, k_b, v_b, scale).detach()
         replace_out = fast_attention(q_e, k_r, v_b, scale)
-        rep_rows = replace_out[:, rows]
-        m_rows = ms.mask_new_warped[rows][None, :, None].to(replace_out.dtype)
+        idx = rows[:, None, :, None].expand(*edit_rows.shape)
+        rep_rows = torch.gather(replace_out, 2, idx)
+        m_rows = torch.gather(ms.mask_new_warped, 1, rows)[:, None, :, None].to(replace_out.dtype)
         # padded budget rows carry mask weight 0: the blend is a no-op there
         blend = edit_rows.to(replace_out.dtype) * m_rows + rep_rows * (1.0 - m_rows)
-        out = replace_out.clone()
-        out[:, rows] = blend
-        return out, 0.0, zero_logs()
+        return replace_out.scatter(2, idx, blend), 0.0, zero_logs()
 
-    past_obj = state.past_obj_edit
-    if past_obj is None:
-        past_obj = state.cur_step >= state.obj_edit_thresh
+    past_obj = _past_obj(state)
     use_explicit = state.apply_constraints and not is_cross
     if use_explicit:
         logits = torch.matmul(q_e.float(), k_r.float().transpose(-1, -2)) * scale
-        logits = logits + _constraint_bias(ms, logits.shape[-1])[None]
+        logits = logits + _constraint_bias(ms, logits.shape[-1])[:, None]
         probs_full = torch.softmax(logits, dim=-1).to(torch.bfloat16)
         replace_out = attn_out(probs_full, v_b)
-        probs_rows = probs_full[:, ms.inpaint_rows] if state.compute_losses else None
+        probs_rows = (_rows_of(probs_full, ms.inpaint_rows)
+                      if state.compute_losses and ms.inpaint_rows is not None else None)
     else:
         replace_out = fast_attention(q_e, k_r, v_b, scale)
     if past_obj and not state.compute_losses:
@@ -271,7 +327,7 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
 
     loss = 0.0
     logs = zero_logs()
-    l = q.shape[2]
+    l = q.shape[3]
     if state.compute_losses and l >= state.loss_min_seq:
         w = state.weights_cross if is_cross else state.weights_self
         sim = background_preservation_loss(edit_out, replace_out, ms.background)
@@ -285,7 +341,7 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
             amodal = amodal_loss(edit_out, replace_out, ms)
         else:
             # zeroed at 32^2 (attention_processors.py:479-480)
-            amodal = torch.zeros((), dtype=torch.float32, device=q.device)
+            amodal = torch.zeros_like(sim)
         loss = (w["sim"] * sim + w["movement"] * movement + w["removal"] * removal
                 + w["smoothness"] * smooth + w["amodal"] * amodal)
         logs = _branch_logs(is_cross, sim=sim, movement=movement, removal=removal,
@@ -294,23 +350,22 @@ def _editor_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale
     # attention sharing vs diffusion correction (attention_processors.py:502-508)
     if past_obj:
         return replace_out, loss, logs
-    m_e = ms.mask_new_warped[None, :, None].to(replace_out.dtype)
+    m_e = ms.mask_new_warped[:, None, :, None].to(replace_out.dtype)
     return edit_out * m_e + replace_out * (1.0 - m_e), loss, logs
 
 
 def _remover_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scale: float,
                     base_out):
     """AttentionGeometryRemover edit-stream output + losses
-    (attention_processors.py:748-928)."""
-    b_i, e_i = state.base_idx, state.edit_idx
-    q_b, k_b, v_b = q[b_i].detach(), k[b_i].detach(), v[b_i].detach()
-    q_e = q[e_i]
+    (attention_processors.py:748-928) of every edit of the group, shapes as
+    in `_editor_stream`."""
+    q_b, k_b, v_b, q_e = _streams(q, k, v, state)
     edit_out = base_out.detach()   # the base stream's vanilla output
     replace_out = fast_attention(q_e, k_b, v_b, scale)
 
     loss = 0.0
     logs = zero_logs()
-    l = q.shape[2]
+    l = q.shape[3]
     if state.compute_losses and l >= state.loss_min_seq:
         w = state.weights_cross if is_cross else state.weights_self
         sim = background_preservation_loss(edit_out, replace_out, ms.background)
@@ -321,13 +376,11 @@ def _remover_stream(q, k, v, is_cross: bool, state: EditState, ms: MaskSet, scal
 
     # past obj_edit_step, identity attention inside the inpaint mask
     # (attention_processors.py:831-834, 922-925)
-    past_obj = state.past_obj_edit
-    if past_obj is None:
-        past_obj = state.cur_step >= state.obj_edit_thresh
-    m_in = ms.inpaint[None, :, None].to(replace_out.dtype)
-    m_bg = ms.background[None, :, None].to(replace_out.dtype)
-    if past_obj:
-        id_out = fast_attention(q_e, k[e_i], v[e_i], scale)
+    m_in = ms.inpaint[:, None, :, None].to(replace_out.dtype)
+    m_bg = ms.background[:, None, :, None].to(replace_out.dtype)
+    if _past_obj(state):
+        e_i = state.edit_idx
+        id_out = fast_attention(q_e, k[:, e_i].contiguous(), v[:, e_i].contiguous(), scale)
         return id_out * m_in + replace_out * m_bg, loss, logs
     return replace_out * m_in + replace_out * m_bg, loss, logs
 
@@ -337,31 +390,35 @@ def edited_attention(q, k, v, *, is_cross: bool, state: EditState, scale: float
     """Full edited multi-stream attention (AttentionGeometryEdit.forward,
     attention_processors.py:633-664): cross layers are always edited,
     self layers inside the self-replace window; under CFG only the cond
-    edit stream is replaced.  Returns (out (S,H,L,D), loss, logs)."""
-    s, h, l, d = q.shape
+    edit stream is replaced.  q, k, v are (E*S, H, L, D), each edit's S
+    streams together; returns (out (E*S, H, L, D), loss, logs), the loss
+    and every log (E,)."""
+    n, h, l, d = q.shape
     res = math.isqrt(l)
     if res * res != l or res not in state.masks:
         return fast_attention(q, k, v, scale), 0.0, zero_logs()
     ms = state.masks[res]
+    e = state.n_edits
+    q, k, v = (x.reshape(e, -1, *x.shape[1:]) for x in (q, k, v))
     n_van = state.n_vanilla_streams
     van = slice(0, n_van)
     if state.consume_taps:
         # the vanilla streams start with the detached tap; detaching them
         # all keeps autograd from running a backward whose cotangent is 0
-        out_v = fast_attention(q[van].detach(), k[van].detach(), v[van].detach(), scale)
+        out_v = fast_attention(q[:, van].detach(), k[:, van].detach(), v[:, van].detach(), scale)
     else:
-        out_v = fast_attention(q[van], k[van], v[van], scale)
+        out_v = fast_attention(q[:, van], k[:, van], v[:, van], scale)
 
     in_window = state.self_window
     if in_window is None:
         in_window = state.self_replace_lo <= state.cur_step < state.self_replace_hi
     if (is_cross or in_window) and state.mode == "remover":
         out_e, loss, logs = _remover_stream(q, k, v, is_cross, state, ms, scale,
-                                            out_v[state.base_idx])
+                                            out_v[:, state.base_idx])
     elif is_cross or in_window:
         out_e, loss, logs = _editor_stream(q, k, v, is_cross, state, ms, scale)
     else:
-        e = state.edit_idx
-        out_e = fast_attention(q[e:e + 1], k[e:e + 1], v[e:e + 1], scale)[0]
+        i = state.edit_idx
+        out_e = fast_attention(q[:, i], k[:, i], v[:, i], scale)
         loss, logs = 0.0, zero_logs()
-    return torch.cat([out_v, out_e[None]], dim=0), loss, logs
+    return torch.cat([out_v, out_e[:, None]], dim=1).reshape(n, h, l, d), loss, logs

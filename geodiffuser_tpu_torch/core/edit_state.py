@@ -6,12 +6,20 @@ every attention layer (attention_sharing.py:110-153,
 attention_processors.py:319-373); here the masks of every attention
 resolution are built once per edit and the per-step state is a plain
 dataclass passed down the UNet.
+
+A lockstep group of E edits (`parallel/batch.py`) stacks E single-edit mask
+sets into one whose every field has a leading edit axis
+(`stack_mask_sets`), as the JAX package's `jax.vmap` over its step
+programs gives each per-edit array; the row budgets are equal across edits
+of one type, so they stack.  An `EditState` over such masks carries the
+group size in `n_edits` (1 for one edit's masks, which it stacks as a
+group of one) and may carry per-edit (E,) loss weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -75,7 +83,8 @@ class RecordTaps:
 
 class LossAccumulator:
     """Sum of the per-layer edit losses and logs over one UNet forward
-    (the reference's `controller.loss +=`, attention_processors.py:494, 604)."""
+    (the reference's `controller.loss +=`, attention_processors.py:494, 604);
+    in a group each loss and log is an (E,) tensor, one entry per edit."""
 
     def __init__(self):
         from geodiffuser_tpu_torch.core.edit_attention import zero_logs
@@ -99,8 +108,8 @@ class EditState:
     self_replace_hi: int
     splat_radius: float
     splat_tau: float
-    weights_self: Dict[str, float]
-    weights_cross: Dict[str, float]
+    weights_self: Dict[str, object]     # floats, or (E,) tensors in a group
+    weights_cross: Dict[str, object]
     masks: Dict[int, MaskSet]
     warp_mats: Optional[Dict[int, torch.Tensor]] = None
     loss_min_seq: int = 32 * 32
@@ -117,6 +126,8 @@ class EditState:
     full_blend: bool = False
     # base-stream (q, k, v) per attention layer from a RecordTaps pass
     taps: Optional[Dict[str, tuple]] = None
+    # edits of a lockstep group: the masks' (and warp operators') leading axis
+    n_edits: int = 1
 
     @property
     def n_vanilla_streams(self) -> int:
@@ -238,14 +249,40 @@ def build_mask_sets(image_mask: torch.Tensor, t_coords: torch.Tensor,
     return out
 
 
+def is_batched(masks: Dict[int, MaskSet]) -> bool:
+    """Whether the mask sets carry a leading edit axis."""
+    return next(iter(masks.values())).inpaint.dim() == 2
+
+
+def stack_mask_sets(sets: Sequence[Dict[int, MaskSet]]) -> Dict[int, MaskSet]:
+    """E single-edit mask sets (of one edit type and image size) as one
+    whose every field has a leading edit axis of E."""
+    out = {}
+    for res in sets[0]:
+        fields = {}
+        for f in dataclasses.fields(MaskSet):
+            vals = [getattr(s[res], f.name) for s in sets]
+            fields[f.name] = None if vals[0] is None else torch.stack(vals)
+        out[res] = MaskSet(**fields)
+    return out
+
+
+def as_batched(masks: Dict[int, MaskSet]) -> Dict[int, MaskSet]:
+    """The mask sets with a leading edit axis: one edit's become a group of 1."""
+    return masks if is_batched(masks) else stack_mask_sets([masks])
+
+
 def build_warp_matrices(masks: Dict[int, MaskSet], radius: float, tau: float,
                         z_beta: float) -> Dict[int, torch.Tensor]:
     """Dense splat operator per resolution for the current (annealed) splat
-    parameters; shared by all attention layers of a step."""
-    return {
-        res: splat_ops.warp_matrix(ms.t_coords, radius=radius, tau=tau, z_beta=z_beta)
-        for res, ms in masks.items()
-    }
+    parameters; shared by all attention layers of a step.  (L, L) for one
+    edit's masks, (E, L, L) for a group's: one operator per edit."""
+    def op(tc):
+        return splat_ops.warp_matrix(tc, radius=radius, tau=tau, z_beta=z_beta)
+
+    if not is_batched(masks):
+        return {res: op(ms.t_coords) for res, ms in masks.items()}
+    return {res: torch.stack([op(tc) for tc in ms.t_coords]) for res, ms in masks.items()}
 
 
 def make_edit_state(cfg: EditConfig, masks: Dict[int, MaskSet], cur_step: int = 0,
@@ -256,6 +293,11 @@ def make_edit_state(cfg: EditConfig, masks: Dict[int, MaskSet], cur_step: int = 
                     consume_taps: bool = False, self_window: Optional[bool] = None,
                     past_obj_edit: Optional[bool] = None, full_blend: bool = False,
                     taps: Optional[Dict[str, tuple]] = None) -> EditState:
+    """The state of one step; one edit's masks and warp operators without an
+    edit axis become a group of one."""
+    if not is_batched(masks):
+        masks = stack_mask_sets([masks])
+        warp_mats = None if warp_mats is None else {r: w[None] for r, w in warp_mats.items()}
     w = weights if weights is not None else cfg.resolved_loss_weights()
     n = cfg.num_ddim_steps
     max_res = max(masks.keys())
@@ -266,8 +308,8 @@ def make_edit_state(cfg: EditConfig, masks: Dict[int, MaskSet], cur_step: int = 
         self_replace_hi=int(n * cfg.self_replace_steps),
         splat_radius=float(cfg.splat.radius if splat_radius is None else splat_radius),
         splat_tau=float(cfg.splat.tau if splat_tau is None else splat_tau),
-        weights_self={k: float(v) for k, v in w["self"].items()},
-        weights_cross={k: float(v) for k, v in w["cross"].items()},
+        weights_self={k: _weight(v) for k, v in w["self"].items()},
+        weights_cross={k: _weight(v) for k, v in w["cross"].items()},
         masks=masks,
         warp_mats=warp_mats,
         loss_min_seq=loss_min_seq(max_res),
@@ -283,4 +325,10 @@ def make_edit_state(cfg: EditConfig, masks: Dict[int, MaskSet], cur_step: int = 
         past_obj_edit=past_obj_edit,
         full_blend=full_blend,
         taps=taps,
+        n_edits=next(iter(masks.values())).inpaint.shape[0],
     )
+
+
+def _weight(v):
+    """A loss weight: a float, or a group's (E,) tensor as it is."""
+    return v if isinstance(v, torch.Tensor) and v.dim() > 0 else float(v)

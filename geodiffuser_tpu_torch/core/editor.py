@@ -19,6 +19,14 @@ JAX package's compiled step programs are plain functions here, run eagerly:
    null-text inversion (per-step uncond embeddings), the fast-start inner
    loop of the first optimize step and the attention constraints.
 
+One loop, `EditSession._edit_loop`, advances E edits of one type together:
+the step functions take a leading edit axis, latents2 (E, 2, h, w, 4),
+context4 (E, 4, 77, D), mask sets with an edit axis
+(`edit_state.stack_mask_sets`), (E,) loss weights and an (E, ...) SGD
+state, with one UNet call a pass for all of them.  `run` is a group of one;
+`parallel/batch.py` runs groups.  Called with one edit's (2, h, w, 4)
+latents the step functions take and return one edit's shapes.
+
 The XLA compile machinery of the JAX package (precompile, lowering, the
 persistent compile cache) has no counterpart: PyTorch runs eagerly.
 """
@@ -147,22 +155,40 @@ class EditSession:
         )
         return tf, masks
 
+    def preprocess_batch(self, images, depths, masks, transforms):
+        """Transform fields and mask sets of E edits, one edit at a time (the
+        JAX package chunks its preprocess to one edit a device: the splat's
+        buffers are per edit), then stacked: (E transform fields, mask sets
+        with an edit axis)."""
+        out = [self._preprocess(*args) for args in zip(images, depths, masks, transforms)]
+        return [tf for tf, _ in out], edit_state.stack_mask_sets([ms for _, ms in out])
+
     def _full_blend(self, masks) -> bool:
         """Warn when an inpaint mask exceeds the removal-loss row budget;
         True when any warped mask exceeds the no-loss blend budget, in which
-        case the CFG steps run the exact full-row blend."""
+        case the CFG steps run the exact full-row blend.  A group runs it
+        when any of its edits overflows (the fast blend equals it for the
+        others); the warnings name the overflowing edits."""
+        masks = edit_state.as_batched(masks)
         flagged = [(res, ms) for res, ms in masks.items() if ms.inpaint_overflow is not None]
         if not flagged:
             return False
-        vals = torch.stack([torch.stack([ms.inpaint_overflow, ms.warped_overflow])
-                            for _, ms in flagged]).tolist()
+        vals = torch.stack([torch.stack([ms.inpaint_overflow, ms.warped_overflow], dim=-1)
+                            for _, ms in flagged]).tolist()      # (res, E, 2)
+        group = len(vals[0]) > 1
         full_blend = False
-        for (res, _), (inp_of, warp_of) in zip(flagged, vals):
-            if inp_of > 0.5:
-                log.warning("inpaint mask at %dx%d exceeds the removal-loss row budget; "
+        for (res, _), per_edit in zip(flagged, vals):
+            over = [e for e, (inp_of, _) in enumerate(per_edit) if inp_of > 0.5]
+            if over:
+                log.warning("inpaint mask at %dx%d exceeds the removal-loss row budget%s; "
                             "overflow rows are dropped and the removal loss is underestimated",
-                            res, res)
-            full_blend |= warp_of > 0.5
+                            res, res, f" in edit(s) {over}" if group else "")
+            warped = [e for e, (_, warp_of) in enumerate(per_edit) if warp_of > 0.5]
+            if warped and group:
+                log.warning("warped mask at %dx%d exceeds the no-loss blend row budget in "
+                            "edit(s) %s: the group's CFG steps run the full-row blend",
+                            res, res, warped)
+            full_blend |= bool(warped)
         return full_blend
 
     def _state(self, masks, i, weights, radius, tau, use_cfg, compute_losses, warp_mats,
@@ -182,90 +208,123 @@ class EditSession:
 
     # --------------------------------------------------------------- optimize
     def _optimize_step(self, latents2, context4, t, masks, i, weights, radius, tau, lr_eff,
-                       sgd_state, warp_mats, self_window, past_obj):
-        """Grad-enabled cond-only pass + masked update (editor.py:181-336).
-        Returns (latents2, context4, sgd_state, logs, taps)."""
+                       sgd_state, warp_mats, self_window, past_obj, fetch_logs: bool = True):
+        """Grad-enabled cond-only pass + masked update (editor.py:181-336)
+        of every edit of the group.  Returns (latents2, context4, sgd_state,
+        logs, taps); logs is a list of E {key: float} dicts (one dict for one
+        edit's shapes), or without `fetch_logs` the unfetched (keys,
+        (E, 1 + K) device tensor) for `_host_logs`."""
+        one, latents2, context4, sgd_state, masks, warp_mats = _as_group(
+            latents2, context4, sgd_state, masks, warp_mats)
         cfg = self.cfg
         unet = self.pipeline.unet
+        e = latents2.shape[0]
         rec = edit_state.RecordTaps()
         with torch.no_grad():
-            unet(latents2[0][None], t, context4[2][None], rec)
+            unet(latents2[:, 0], t, context4[:, 2], rec)
         state = self._state(masks, i, weights, radius, tau, use_cfg=False, compute_losses=True,
                             warp_mats=warp_mats, consume_taps=True, self_window=self_window,
                             past_obj=past_obj, taps=rec.taps)
-        latent_edit = latents2[1].float().detach().requires_grad_(True)
-        ctx_edit = context4[3].float().detach().requires_grad_(True)
+        latent_edit = latents2[:, 1].float().detach().requires_grad_(True)
+        ctx_edit = context4[:, 3].float().detach().requires_grad_(True)
         acc = edit_state.LossAccumulator()
+        per_edit = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device).expand(e)
         with torch.enable_grad():
-            unet(latent_edit[None], t, ctx_edit[None], state, acc)
-            loss = torch.as_tensor(acc.loss, dtype=torch.float32, device=self.device)
+            unet(latent_edit, t, ctx_edit, state, acc)
+            loss = per_edit(acc.loss)
             if loss.requires_grad:
-                gl, gc = torch.autograd.grad(loss, [latent_edit, ctx_edit], allow_unused=True)
+                # the edits' losses are independent: the gradient of their
+                # sum is each edit's own
+                gl, gc = torch.autograd.grad(loss.sum(), [latent_edit, ctx_edit],
+                                             allow_unused=True)
             else:
                 gl = gc = None
         gl = torch.zeros_like(latent_edit) if gl is None else gl
         gc = torch.zeros_like(ctx_edit) if gc is None else gc
 
         with torch.no_grad():
-            orig_norm = image_ops.norm_tensor(latents2[1])
+            orig_norm = optimization.edit_norms(latents2[:, 1])
             res = self.pipeline.latent_size
             mask_latent = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
             new_latent, new_ctx, sgd_state = optimization.apply_update(
-                latents2[1], context4[3], gl, gc, lr_eff, mask_latent, sgd_state,
+                latents2[:, 1], context4[:, 3], gl, gc, lr_eff, mask_latent, sgd_state,
                 momentum=cfg.sgd_momentum)
             latents2 = latents2.clone()
             context4 = context4.clone()
             if cfg.optimize_latents:
-                latents2[1] = optimization.project_norm(new_latent, orig_norm)
+                latents2[:, 1] = optimization.project_norm(new_latent, orig_norm)
             if cfg.optimize_embeddings:
-                context4[3] = new_ctx
+                context4[:, 3] = new_ctx
             keys = sorted(acc.logs)
-            vals = torch.stack([loss.detach()] + [
-                torch.as_tensor(acc.logs[k], dtype=torch.float32, device=self.device).detach()
-                for k in keys]).tolist()   # one device-to-host copy
-        logs = edit_attention.normalize_logs(dict(zip(keys, vals[1:])))
-        logs["total"] = vals[0]
+            vals = torch.stack([loss.detach()] + [per_edit(acc.logs[k]).detach() for k in keys],
+                               dim=1)
+        logs = (keys, vals)
+        if fetch_logs:
+            logs = self._host_logs(keys, vals)
+            logs = logs[0] if one else logs
+        if one:
+            latents2, context4 = latents2[0], context4[0]
+            sgd_state = None if sgd_state is None else optimization.SGDState(
+                sgd_state.mom_latent[0], sgd_state.mom_context[0])
         return latents2, context4, sgd_state, logs, rec.taps
+
+    @staticmethod
+    def _host_logs(keys, vals):
+        """E {key: float} logs, normalized per layer, with their "total",
+        from an optimize step's (E, 1 + K) device logs: one device-to-host
+        copy."""
+        logs = []
+        for row in vals.tolist():
+            logs.append(edit_attention.normalize_logs(dict(zip(keys, row[1:]))))
+            logs[-1]["total"] = row[0]
+        return logs
 
     # -------------------------------------------------------------------- cfg
     @torch.no_grad()
     def _cfg_step(self, latents2, context4, t, masks, i, weights, radius, tau, pinned_base,
                   do_replace, warp_mats, self_window, past_obj, full_blend, taps=None):
         """No-grad CFG denoise + pinning + latent warp-replace
-        (editor.py:339-403).  Without taps: the slim 3-stream batch
-        [uncond_edit, cond_base, cond_edit] (the reference's uncond_base
-        stream only feeds output that the pinning overwrites).  With the
-        same step's taps: 2 streams [uncond_edit, cond_edit], the taps
-        standing in for cond_base's k/v."""
+        (editor.py:339-403) of every edit of the group.  Without taps: the
+        slim 3-stream batch [uncond_edit, cond_base, cond_edit] of each edit
+        (the reference's uncond_base stream only feeds output that the
+        pinning overwrites).  With the same step's taps: 2 streams
+        [uncond_edit, cond_edit] of each edit, the taps standing in for
+        cond_base's k/v.  pinned_base holds each edit's base latent."""
+        one, latents2, context4, _, masks, warp_mats = _as_group(
+            latents2, context4, None, masks, warp_mats)
         cfg = self.cfg
+        e = latents2.shape[0]
         state = self._state(masks, i, weights, radius, tau, use_cfg=True, compute_losses=False,
                             warp_mats=warp_mats, slim_cfg=True, consume_taps=taps is not None,
                             self_window=self_window, past_obj=past_obj, full_blend=full_blend,
                             taps=taps)
-        lat_e = latents2[1]
-        if taps is None:
-            eps = self.pipeline.unet(torch.stack([lat_e, latents2[0], lat_e]), t,
-                                     torch.stack([context4[1], context4[2], context4[3]]), state)
-            eps_g = eps[0] + cfg.guidance_scale * (eps[2] - eps[0])
-        else:
-            eps = self.pipeline.unet(torch.stack([lat_e, lat_e]), t,
-                                     torch.stack([context4[1], context4[3]]), state)
-            eps_g = eps[0] + cfg.guidance_scale * (eps[1] - eps[0])
-        return self._finish_cfg(state, masks, eps_g, lat_e, t, pinned_base, do_replace)
+        lat_e = latents2[:, 1]
+        streams = ((lat_e, latents2[:, 0], lat_e), (1, 2, 3)) if taps is None else \
+            ((lat_e, lat_e), (1, 3))
+        lat_in = torch.stack(streams[0], dim=1)
+        ctx_in = context4[:, list(streams[1])]
+        eps = self.pipeline.unet(lat_in.reshape(-1, *lat_in.shape[2:]), t,
+                                 ctx_in.reshape(-1, *ctx_in.shape[2:]), state)
+        eps = eps.reshape(e, -1, *eps.shape[1:])
+        eps_g = eps[:, 0] + cfg.guidance_scale * (eps[:, -1] - eps[:, 0])
+        out = self._finish_cfg(state, masks, eps_g, lat_e, t, pinned_base.reshape(lat_e.shape),
+                               do_replace)
+        return out[0] if one else out
 
     def _finish_cfg(self, state, masks, eps_g, lat_e, t, pinned_base, do_replace):
-        """DDIM step on the edit stream, base-trajectory pinning
-        (editor.py:375-377) and, in editor mode, the hard latent warp-replace
-        while i < latent_replace * T (editor.py:382-399)."""
-        new_edit = sched.ddim_step(self.pipeline.schedule, eps_g[None], t, lat_e[None],
+        """DDIM step on the edit streams (E, h, w, 4), base-trajectory
+        pinning (editor.py:375-377) and, in editor mode, the hard latent
+        warp-replace while i < latent_replace * T (editor.py:382-399).
+        Returns (E, 2, h, w, 4)."""
+        new_edit = sched.ddim_step(self.pipeline.schedule, eps_g, t, lat_e,
                                    self.cfg.num_ddim_steps)
         base = pinned_base.reshape(new_edit.shape)
         if do_replace and self.mode == "editor":
             res = self.pipeline.latent_size
-            warped = splat_ops.apply_warp_matrix(state.warp_mats[res], base[0])
+            warped = splat_ops.apply_warp_matrix(state.warp_mats[res], base)
             i_mask = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
-            new_edit = (new_edit[0] * (1.0 - i_mask) + i_mask * warped)[None]
-        return torch.cat([base, new_edit], dim=0)
+            new_edit = new_edit * (1.0 - i_mask) + i_mask * warped
+        return torch.stack([base, new_edit], dim=1)
 
     # ------------------------------------------------------------------- run
     def _sync(self):
@@ -276,11 +335,11 @@ class EditSession:
             transform: np.ndarray, prompt: str = "", progress=None,
             use_null_text: Optional[bool] = None, exp_folder: Optional[str] = None
             ) -> EditResult:
-        """One edit.  `use_null_text` overrides `cfg.perform_inversion`
-        (null-text optimization of the uncond embedding after the
-        inversion); `exp_folder` (an existing directory) adds the on-disk
-        tier of the inversion cache, read before and written after an
-        inversion."""
+        """One edit: a group of one through `_edit_loop`.  `use_null_text`
+        overrides `cfg.perform_inversion` (null-text optimization of the
+        uncond embedding after the inversion); `exp_folder` (an existing
+        directory) adds the on-disk tier of the inversion cache, read before
+        and written after an inversion."""
         cfg = self.cfg
         dev = self.device
         timings: Dict[str, float] = {}
@@ -291,11 +350,10 @@ class EditSession:
             image = image.astype(np.float32) / 255.0
         f32 = dict(dtype=torch.float32, device=dev)
         image_t = torch.as_tensor(image, **f32)
-        depth_t = torch.as_tensor(np.asarray(depth), **f32)
         mask_t = image_ops.binarize(torch.as_tensor(np.asarray(image_mask), **f32))
-        transform_t = torch.as_tensor(np.asarray(transform), **f32)
-
-        tf, masks = self._preprocess(image_t, depth_t, mask_t, transform_t)
+        tfs, masks = self.preprocess_batch(
+            image_t[None], torch.as_tensor(np.asarray(depth), **f32)[None], mask_t[None],
+            torch.as_tensor(np.asarray(transform), **f32)[None])
         full_blend = self._full_blend(masks)
         ctx_cond = self.pipeline.encode_text([prompt])
         ctx_uncond = self.pipeline.encode_text([cfg.uncond_text])
@@ -323,19 +381,57 @@ class EditSession:
         timings["inversion"] = time.time() - t_inv
 
         t_loop = time.time()
+        latents2, loss_log, weight_log = self._edit_loop(
+            all_latents, ctx_uncond, ctx_cond, masks, full_blend, uncond_per_step, progress)
+        self._sync()
+        timings["edit_loop"] = time.time() - t_loop
+
+        t_post = time.time()
+        images, edited, warped_u8 = self._decode_post(latents2, image[None],
+                                                      mask_t[None].cpu().numpy(), masks, tfs)
+        timings["decode_post"] = time.time() - t_post
+        timings["total"] = time.time() - t_start
+        return EditResult(images=images[0], edited_image=edited[0],
+                          loss_log=logs_of_edit(loss_log, 0), warped_preview=warped_u8[0],
+                          timings=timings, weight_log=logs_of_edit(weight_log, 0),
+                          latents=latents2[0])
+
+    def _edit_loop(self, all_latents, ctx_uncond, ctx_cond, masks, full_blend,
+                   uncond_per_step=None, progress=None):
+        """The denoising loop of E edits of one type in lockstep
+        (editor.py:142-403): optimize steps, CFG steps and the CFG-only tail,
+        the adaptive weights kept per edit on the host.  all_latents
+        (T+1, E, h, w, 4) are the inversion's trajectories, ctx_uncond and
+        ctx_cond (E, 77, D), masks with an edit axis.  Each optimize step's
+        (E, 1 + K) logs are fetched at the next optimize step (or the loop's
+        end), so the host queues the CFG step behind them without waiting;
+        `progress` sees edit 0's loss.  Null text (`uncond_per_step`, each
+        step's (1, 77, D) uncond embedding) and the fast start's inner loop
+        run one edit only.  Returns (final latents (E, 2, h, w, 4), loss_log,
+        weight_log), the logs {step: {key: (E,) array}}."""
+        cfg = self.cfg
+        e = all_latents.shape[1]
         n = cfg.num_ddim_steps
+        fast_start = cfg.fast_start_steps > 0.0
+        if e > 1 and (fast_start or uncond_per_step is not None):
+            raise ValueError("null text and the fast start run one edit at a time")
         x_t = all_latents[-1]
-        latents2 = torch.cat([x_t, x_t], dim=0)
-        context4 = torch.cat([ctx_uncond, ctx_uncond, ctx_cond, ctx_cond], dim=0).float()
+        latents2 = torch.stack([x_t, x_t], dim=1)
+        context4 = torch.stack([ctx_uncond, ctx_uncond, ctx_cond, ctx_cond], dim=1).float()
+        if e == 1:
+            # one edit runs at its own shapes (the step functions take both):
+            # null text's streams and the fast start's inner loop are one edit's
+            latents2, context4 = latents2[0], context4[0]
         optimize_frac = min(cfg.optimize_steps, max(cfg.self_replace_steps, cfg.cross_replace_steps))
         defaults = {b: dict(t_) for b, t_ in cfg.resolved_loss_weights().items()}
-        weights = {b: dict(t_) for b, t_ in defaults.items()}
-        sgd_state = (optimization.init_sgd_state(latents2[1], context4[3])
+        weights = [{b: dict(t_) for b, t_ in defaults.items()} for _ in range(e)]
+        sgd_state = (optimization.init_sgd_state(latents2[..., 1, :, :, :], context4[..., 3, :, :])
                      if cfg.use_optimizer else None)
         lr_first = optimization.effective_lr(cfg.lr, 0, cfg.skip_optim_steps, n)
-        loss_log: Dict[int, Dict[str, float]] = {}
-        weight_log: Dict[int, Dict[str, float]] = {}
+        loss_log: Dict[int, Dict[str, np.ndarray]] = {}
+        weight_log: Dict[int, Dict[str, np.ndarray]] = {}
         timesteps = sched.timesteps(n, self.pipeline.schedule.num_train_timesteps)
+        stitch = cfg.edit_type == "geometry_stitch"
 
         # splat annealing incl. the reference's int() radius floor (editor.py:154-156)
         radius_sched, tau_sched = [], []
@@ -346,20 +442,41 @@ class EditSession:
             radius_sched.append(r_)
             tau_sched.append(float(np.float32(tau_)))
 
-        def record(i_p, logs_host):
-            nonlocal weights
-            loss_log[i_p] = logs_host
-            if cfg.use_adaptive_optimization and cfg.edit_type == "geometry_stitch":
-                weights = optimization.adaptive_step_stitching(
-                    weights, defaults, i_p, cfg.skip_optim_steps, n, logs_host["self/sim"])
-            elif cfg.use_adaptive_optimization:
-                weights = optimization.adaptive_step(
-                    weights, defaults, i_p, cfg.skip_optim_steps, n, logs_host["self/removal"],
-                    cfg.edit_type, cfg.removal_loss_value)
-            weight_log[i_p] = {f"{b}/{k_}": float(v_) for b, t_ in weights.items()
-                               for k_, v_ in t_.items()}
-            if progress is not None:
-                progress(i_p / n, desc=f"Editing loss: {logs_host['total']:.4f}")
+        def stacked_weights():
+            """The edits' weights as one (E,) tensor per loss (one copy to the device)."""
+            names = [(b, k) for b, t_ in defaults.items() for k in t_]
+            vals = torch.tensor([[w[b][k] for w in weights] for b, k in names],
+                                dtype=torch.float32, device=self.device)
+            out = {b: {} for b in defaults}
+            for row, (b, k) in zip(vals, names):
+                out[b][k] = row
+            return out
+
+        pending = []   # [(step, keys, (E, 1 + K) device logs)]
+        w_dev = stacked_weights()
+
+        def drain():
+            """Fetch the pending logs and set each edit's adaptive weights."""
+            nonlocal w_dev
+            for i_p, keys, vals in pending:
+                logs = self._host_logs(keys, vals)
+                loss_log[i_p] = {k: np.array([lg[k] for lg in logs]) for k in logs[0]}
+                if cfg.use_adaptive_optimization:
+                    for j, lg in enumerate(logs):
+                        if stitch:
+                            weights[j] = optimization.adaptive_step_stitching(
+                                weights[j], defaults, i_p, cfg.skip_optim_steps, n, lg["self/sim"])
+                        else:
+                            weights[j] = optimization.adaptive_step(
+                                weights[j], defaults, i_p, cfg.skip_optim_steps, n,
+                                lg["self/removal"], cfg.edit_type, cfg.removal_loss_value)
+                weight_log[i_p] = {f"{b}/{k_}": np.array([float(w[b][k_]) for w in weights])
+                                   for b, t_ in defaults.items() for k_ in t_}
+                if progress is not None:
+                    progress(i_p / n, desc=f"Editing loss: {logs[0]['total']:.4f}")
+            if pending:
+                w_dev = stacked_weights()
+            pending.clear()
 
         last_opt = max([i for i in range(n)
                         if i < optimize_frac * n and i % cfg.skip_optim_steps == 0] + [-1])
@@ -390,40 +507,50 @@ class EditSession:
                            and i >= cfg.fast_start_steps * n)
             taps = None
             if do_optimize:
+                drain()
                 lr_eff = (lr_first if cfg.use_optimizer
                           else optimization.effective_lr(cfg.lr, i, cfg.skip_optim_steps, n))
 
                 def step(lat2, ctx4, sgd):
-                    out = self._optimize_step(lat2, ctx4, t, masks, i, weights, radius_sched[i],
-                                              tau_sched[i], lr_eff, sgd, wm, win, obj)
-                    record(i, out[3])   # the adaptive weights of the next iteration
+                    out = self._optimize_step(lat2, ctx4, t, masks, i, w_dev, radius_sched[i],
+                                              tau_sched[i], lr_eff, sgd, wm, win, obj, False)
+                    pending.append((i, *out[3]))
                     return out
 
-                n_inner = (cfg.num_first_optim_steps
-                           if not first_optim_done and cfg.fast_start_steps > 0.0 else 1)
+                if fast_start and not first_optim_done:
+                    def inner(lat2, ctx4, sgd):
+                        # each iteration's logs set the next one's weights
+                        out = step(lat2, ctx4, sgd)
+                        drain()
+                        return (*out[:3], {"total": float(loss_log[i]["total"][0])}, out[4])
+
+                    latents2, context4, sgd_state, _, taps = optimize_iterations(
+                        inner, cfg.num_first_optim_steps, latents2, context4, sgd_state)
+                else:
+                    latents2, context4, sgd_state, _, taps = step(latents2, context4, sgd_state)
                 first_optim_done = True
-                latents2, context4, sgd_state, logs_host, taps = optimize_iterations(
-                    step, n_inner, latents2, context4, sgd_state)
             latents2 = self._cfg_step(
-                latents2, context4, t, masks, i, weights, radius_sched[i], tau_sched[i],
+                latents2, context4, t, masks, i, w_dev, radius_sched[i], tau_sched[i],
                 all_latents[n - 1 - i], i < cfg.latent_replace * n, wm, win, obj, full_blend,
                 taps=taps)
-        self._sync()
-        timings["edit_loop"] = time.time() - t_loop
+        drain()
+        return (latents2[None] if e == 1 else latents2), loss_log, weight_log
 
-        t_post = time.time()
-        images = self.pipeline.decode_latents(latents2)
-        h_img = images.shape[1]
+    def _decode_post(self, latents2, images_f, mask_np, masks, tfs):
+        """Decode of every edit's [base, edit] latents (E, 2, h, w, 4) in one
+        call, then each edit's host post-processing: (images (E, 2, H, W, 3)
+        uint8, E edited images, warped previews (E, H, W, 3) uint8)."""
+        e, _, h, w = latents2.shape[:4]
+        images = self.pipeline.decode_latents(latents2.reshape(e * 2, h, w, 4))
+        images = images.reshape(e, 2, *images.shape[1:])
+        h_img = images.shape[2]
         res_mask = image_ops.binarize(image_ops.resize_bilinear(
             masks[self.pipeline.latent_size].mask_new_warped_2d, h_img, h_img)).cpu().numpy()
-        warped_u8 = torch.round(torch.clamp(tf.warped_preview, 0.0, 1.0) * 255.0
-                                ).to(torch.uint8).cpu().numpy()
-        edited = self._postprocess(images[-1], image, mask_t.cpu().numpy(), res_mask, warped_u8)
-        timings["decode_post"] = time.time() - t_post
-        timings["total"] = time.time() - t_start
-        return EditResult(images=images, edited_image=edited, loss_log=loss_log,
-                          warped_preview=warped_u8, timings=timings, weight_log=weight_log,
-                          latents=latents2)
+        warped_u8 = torch.round(torch.clamp(torch.stack([tf.warped_preview for tf in tfs]),
+                                            0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+        edited = [self._postprocess(images[j, -1], images_f[j], mask_np[j], res_mask[j],
+                                    warped_u8[j]) for j in range(e)]
+        return images, edited, warped_u8
 
     def _postprocess(self, edited_u8, image_f, mask_np, res_mask, warped_input) -> np.ndarray:
         """Masked histogram matching of the edit against the input outside
@@ -459,6 +586,27 @@ def optimize_iterations(step, n_inner: int, latents2, context4, sgd_state):
     if n_inner > 1 and best[1] is not None:
         latents2, context4 = best[1], best[2]
     return latents2, context4, sgd_state, logs, taps
+
+
+def _as_group(latents2, context4, sgd_state, masks, warp_mats):
+    """The step functions' arguments with the edit axis: one edit's
+    (2, h, w, 4) latents, (4, 77, D) embeddings, SGD state, mask sets and
+    warp operators become a group of one.  Returns (one, latents2,
+    context4, sgd_state, masks, warp_mats), `one` when they came without
+    it."""
+    if latents2.dim() == 5:
+        return False, latents2, context4, sgd_state, masks, warp_mats
+    if sgd_state is not None:
+        sgd_state = optimization.SGDState(sgd_state.mom_latent[None], sgd_state.mom_context[None])
+    if not edit_state.is_batched(masks):
+        masks = edit_state.stack_mask_sets([masks])
+        warp_mats = None if warp_mats is None else {r: w[None] for r, w in warp_mats.items()}
+    return True, latents2[None], context4[None], sgd_state, masks, warp_mats
+
+
+def logs_of_edit(log: Dict[int, Dict[str, np.ndarray]], e: int) -> Dict[int, Dict[str, float]]:
+    """Edit e's entries of a group's per-step log {step: {key: (E,) array}}."""
+    return {i: {k: float(v[e]) for k, v in d.items()} for i, d in log.items()}
 
 
 def perform_geometric_edit(pipeline: Pipeline, image: np.ndarray, depth: np.ndarray,

@@ -57,10 +57,19 @@ def apply_update(latent_edit, ctx_edit, grad_latent, grad_ctx, step_size: float,
     return new_latent, new_ctx, new_state
 
 
+def edit_norms(latent_edit: torch.Tensor) -> torch.Tensor:
+    """Frobenius norm of each edit's latent: (E, ...) -> (E,)
+    (generic_torch.py:87-88 per edit)."""
+    return torch.sqrt(torch.sum(latent_edit * latent_edit,
+                                dim=tuple(range(1, latent_edit.dim()))) + 1e-12)
+
+
 def project_norm(latent_edit: torch.Tensor, target_norm: torch.Tensor) -> torch.Tensor:
-    """Re-project to the pre-update Frobenius norm (editor.py:312-316)."""
-    cur = torch.sqrt(torch.sum(latent_edit * latent_edit) + 1e-12)
-    return latent_edit * target_norm / cur
+    """Re-project each edit's latent (E, ...) to its pre-update Frobenius
+    norm, target_norm (E,) (editor.py:312-316)."""
+    tail = (1,) * (latent_edit.dim() - 1)
+    return (latent_edit * target_norm.reshape(-1, *tail)
+            / edit_norms(latent_edit).reshape(-1, *tail))
 
 
 WeightTable = Dict[str, Dict[str, float]]

@@ -41,6 +41,12 @@
 //  (value and rounding residual), so the float32 products of the plain
 //  version hold.  No atomics in the backward.
 //
+// A lockstep group of E edits runs in one launch of each kernel: the heads
+// are E * heads_per_edit (hpe), edit-major, and the masks carry the edit
+// axis, inpaint and background (E, L) and row_mask (E, K); the blocks of
+// head h read the rows of edit h / hpe (the edit axis that jax.vmap gives
+// the Pallas kernels' grids).
+//
 // float32 inputs run the CUDA-core kernels below, which serve the float32
 // checks and the card-vs-CPU reference edits: a first pass computes the
 // LSE of every edit and base row; one block owns (head, 64 edit rows, one
@@ -70,13 +76,13 @@ __device__ __forceinline__ bool tile_live(const float* row_mask, int r0, int R) 
 template <typename T, int UNUSED>
 __global__ void __launch_bounds__(NT)
 row_lse_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __restrict__ lse,
-               const float* __restrict__ row_mask, int R, int Lk, int D, float scale) {
+               const float* __restrict__ row_mask, int hpe, int R, int Lk, int D, float scale) {
   extern __shared__ float sm[];
   const int sd = D + 1;
   float* sQ = sm;
   float* sK = sQ + TILE * sd;
   const int h = blockIdx.y, r0 = blockIdx.x * TILE;
-  if (row_mask != nullptr && !tile_live(row_mask, r0, R)) return;
+  if (row_mask != nullptr && !tile_live(row_mask + (size_t)(h / hpe) * R, r0, R)) return;
   const int r = threadIdx.x >> 2, l4 = threadIdx.x & 3;
   load_tile(sQ, q + (size_t)h * R * D, r0, R, D, sd);
   const T* kh = k + (size_t)h * Lk * D;
@@ -109,8 +115,8 @@ corr_span_kernel(const T* __restrict__ qe, const T* __restrict__ ke, const T* __
                  const T* __restrict__ kb, const float* __restrict__ inpaint,
                  const float* __restrict__ background, const float* __restrict__ row_mask,
                  const float* __restrict__ lse_e, const float* __restrict__ lse_b,
-                 float* __restrict__ part_val, int* __restrict__ part_idx, int K, int L, int Lk,
-                 int D, float scale) {
+                 float* __restrict__ part_val, int* __restrict__ part_idx, int hpe, int K, int L,
+                 int Lk, int D, float scale) {
   extern __shared__ float sm[];
   const int sd = D + 1;
   float* sQe = sm;
@@ -124,7 +130,10 @@ corr_span_kernel(const T* __restrict__ qe, const T* __restrict__ ke, const T* __
   float* sIn = sLb + TILE;
   float* sBg = sIn + TILE;
   const int h = blockIdx.y, i0 = blockIdx.x * TILE, span = blockIdx.z, spans = gridDim.z;
-  if (!tile_live(row_mask, i0, K)) return;
+  const size_t edit = h / hpe;
+  inpaint += edit * L;
+  background += edit * L;
+  if (!tile_live(row_mask + edit * K, i0, K)) return;
   const int r = threadIdx.x >> 2, l4 = threadIdx.x & 3;
   load_tile(sQe, qe + (size_t)h * K * D, i0, K, D, sd);
   if (threadIdx.x < TILE)
@@ -203,13 +212,13 @@ __global__ void corr_combine_kernel(const float* __restrict__ part_val,
                                     const int* __restrict__ part_idx,
                                     const float* __restrict__ row_mask, float* __restrict__ p_in,
                                     float* __restrict__ p_bg, int* __restrict__ j_in,
-                                    int* __restrict__ j_bg, int H, int K, int spans) {
+                                    int* __restrict__ j_bg, int H, int hpe, int K, int spans) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= H * K) return;
   const int i = t % K;
   float b_in = NEG_INF, b_bg = NEG_INF;
   int x_in = 0, x_bg = 0;
-  if (row_mask[i] > 0.5f) {
+  if (row_mask[(size_t)(t / K / hpe) * K + i] > 0.5f) {
     for (int s = 0; s < spans; ++s) {  // spans in j order: strict '>' keeps the lowest j
       const size_t o = ((size_t)t * spans + s) * 2;
       if (s == 0 || part_val[o] > b_in) { b_in = part_val[o]; x_in = part_idx[o]; }
@@ -237,7 +246,7 @@ corr_bwd_rows_kernel(const T* __restrict__ qe, const T* __restrict__ ke,
                      const float* __restrict__ g_bg, const float* __restrict__ row_mask,
                      const float* __restrict__ lse_e, const float* __restrict__ lse_in,
                      const float* __restrict__ lse_bg, float* __restrict__ c_out,
-                     float* __restrict__ dqe, int K, int Lk, int D, float scale) {
+                     float* __restrict__ dqe, int hpe, int K, int Lk, int D, float scale) {
   extern __shared__ float sm[];
   const int sd = D + 1;
   float* sQe = sm;
@@ -250,7 +259,7 @@ corr_bwd_rows_kernel(const T* __restrict__ qe, const T* __restrict__ ke,
   const int r = threadIdx.x >> 2, l4 = threadIdx.x & 3;
   const bool row_ok = i0 + r < K;
   const size_t row = (size_t)h * K + i0 + r;
-  if (!tile_live(row_mask, i0, K)) {
+  if (!tile_live(row_mask + (size_t)(h / hpe) * K, i0, K)) {
     if (row_ok)
       for (int d = l4; d < D; d += 4) dqe[row * D + d] = 0.f;
     return;
@@ -332,7 +341,7 @@ corr_bwd_keys_kernel(const T* __restrict__ qe, const T* __restrict__ ke,
                      const float* __restrict__ g_bg, const float* __restrict__ row_mask,
                      const float* __restrict__ lse_e, const float* __restrict__ lse_in,
                      const float* __restrict__ lse_bg, const float* __restrict__ c_rows,
-                     float* __restrict__ dke, int K, int Lk, int D, float scale) {
+                     float* __restrict__ dke, int hpe, int K, int Lk, int D, float scale) {
   extern __shared__ float sm[];
   const int sd = D + 1;
   float* sKe = sm;
@@ -351,7 +360,7 @@ corr_bwd_keys_kernel(const T* __restrict__ qe, const T* __restrict__ ke,
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   for (int i0 = 0; i0 < K; i0 += TILE) {
-    if (!tile_live(row_mask, i0, K)) continue;  // uniform: the test is a barrier
+    if (!tile_live(row_mask + (size_t)(h / hpe) * K, i0, K)) continue;  // uniform: a barrier
     load_tile(sQe, qe + (size_t)h * K * D, i0, K, D, sd);
     load_tile(sQi, q_in + (size_t)h * K * D, i0, K, D, sd);
     load_tile(sQg, q_bg + (size_t)h * K * D, i0, K, D, sd);
@@ -401,14 +410,14 @@ corr_bwd_keys_kernel(const T* __restrict__ qe, const T* __restrict__ ke,
 inline size_t tile_bytes(int n_tiles, int D) { return sizeof(float) * n_tiles * TILE * (D + 1); }
 
 template <typename T, int DPT>
-cudaError_t row_lse(const void* q, const void* k, float* lse, const float* row_mask, int H, int R,
-                    int Lk, int D, float scale, cudaStream_t s) {
+cudaError_t row_lse(const void* q, const void* k, float* lse, const float* row_mask, int H,
+                    int hpe, int R, int Lk, int D, float scale, cudaStream_t s) {
   const size_t smem = tile_bytes(2, D);
   auto kern = row_lse_kernel<T, DPT>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3((R + TILE - 1) / TILE, H), NT, smem, s>>>((const T*)q, (const T*)k, lse, row_mask,
-                                                        R, Lk, D, scale);
+                                                        hpe, R, Lk, D, scale);
   return cudaGetLastError();
 }
 
@@ -416,45 +425,46 @@ template <typename T, int DPT>
 cudaError_t corr_fwd(const void* qe, const void* ke, const void* qb, const void* kb,
                      const float* inpaint, const float* background, const float* row_mask,
                      float* lse_e, float* lse_b, float* part_val, int* part_idx, float* p_in,
-                     float* p_bg, int* j_in, int* j_bg, int H, int K, int L, int Lk, int D,
-                     float scale, cudaStream_t s) {
-  cudaError_t e = row_lse<T, DPT>(qe, ke, lse_e, row_mask, H, K, Lk, D, scale, s);
+                     float* p_bg, int* j_in, int* j_bg, int H, int hpe, int K, int L, int Lk,
+                     int D, float scale, cudaStream_t s) {
+  cudaError_t e = row_lse<T, DPT>(qe, ke, lse_e, row_mask, H, hpe, K, Lk, D, scale, s);
   if (e != cudaSuccess) return e;
-  if ((e = row_lse<T, DPT>(qb, kb, lse_b, nullptr, H, L, Lk, D, scale, s)) != cudaSuccess) return e;
+  if ((e = row_lse<T, DPT>(qb, kb, lse_b, nullptr, H, hpe, L, Lk, D, scale, s)) != cudaSuccess)
+    return e;
   const int spans = (L + JSPAN - 1) / JSPAN;
   const size_t smem = tile_bytes(4, D) + sizeof(float) * (2 * TILE * PSTRIDE + 4 * TILE);
   auto kern = corr_span_kernel<T, DPT>;
   if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
   kern<<<dim3((K + TILE - 1) / TILE, H, spans), NT, smem, s>>>(
       (const T*)qe, (const T*)ke, (const T*)qb, (const T*)kb, inpaint, background, row_mask, lse_e,
-      lse_b, part_val, part_idx, K, L, Lk, D, scale);
+      lse_b, part_val, part_idx, hpe, K, L, Lk, D, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   corr_combine_kernel<<<(H * K + 255) / 256, 256, 0, s>>>(part_val, part_idx, row_mask, p_in, p_bg,
-                                                          j_in, j_bg, H, K, spans);
+                                                          j_in, j_bg, H, hpe, K, spans);
   return cudaGetLastError();
 }
 
 template <typename T, int DPT>
 cudaError_t corr_bwd(const void* qe, const void* ke, const void* kb, const void* q_in,
                      const void* q_bg, const float* g_in, const float* g_bg,
-                     const float* row_mask, float* scratch, float* dqe, float* dke, int H, int K,
-                     int Lk, int D, float scale, cudaStream_t s) {
+                     const float* row_mask, float* scratch, float* dqe, float* dke, int H, int hpe,
+                     int K, int Lk, int D, float scale, cudaStream_t s) {
   float* lse_e = scratch;
   float* lse_in = lse_e + (size_t)H * K;
   float* lse_bg = lse_in + (size_t)H * K;
   float* c_rows = lse_bg + (size_t)H * K;
-  cudaError_t e = row_lse<T, DPT>(qe, ke, lse_e, row_mask, H, K, Lk, D, scale, s);
+  cudaError_t e = row_lse<T, DPT>(qe, ke, lse_e, row_mask, H, hpe, K, Lk, D, scale, s);
   if (e != cudaSuccess) return e;
-  if ((e = row_lse<T, DPT>(q_in, kb, lse_in, row_mask, H, K, Lk, D, scale, s)) != cudaSuccess)
+  if ((e = row_lse<T, DPT>(q_in, kb, lse_in, row_mask, H, hpe, K, Lk, D, scale, s)) != cudaSuccess)
     return e;
-  if ((e = row_lse<T, DPT>(q_bg, kb, lse_bg, row_mask, H, K, Lk, D, scale, s)) != cudaSuccess)
+  if ((e = row_lse<T, DPT>(q_bg, kb, lse_bg, row_mask, H, hpe, K, Lk, D, scale, s)) != cudaSuccess)
     return e;
   const size_t smem_a = tile_bytes(5, D) + sizeof(float) * TILE * PSTRIDE;
   auto ka = corr_bwd_rows_kernel<T, DPT>;
   if ((e = allow_smem(ka, smem_a)) != cudaSuccess) return e;
   ka<<<dim3((K + TILE - 1) / TILE, H), NT, smem_a, s>>>(
       (const T*)qe, (const T*)ke, (const T*)q_in, (const T*)q_bg, (const T*)kb, g_in, g_bg,
-      row_mask, lse_e, lse_in, lse_bg, c_rows, dqe, K, Lk, D, scale);
+      row_mask, lse_e, lse_in, lse_bg, c_rows, dqe, hpe, K, Lk, D, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t smem_b =
       tile_bytes(5, D) + sizeof(float) * TILE * PSTRIDE + sizeof(RowScalars) * TILE;
@@ -462,7 +472,7 @@ cudaError_t corr_bwd(const void* qe, const void* ke, const void* kb, const void*
   if ((e = allow_smem(kb_, smem_b)) != cudaSuccess) return e;
   kb_<<<dim3((Lk + TILE - 1) / TILE, H), NT, smem_b, s>>>(
       (const T*)qe, (const T*)ke, (const T*)q_in, (const T*)q_bg, (const T*)kb, g_in, g_bg,
-      row_mask, lse_e, lse_in, lse_bg, c_rows, dke, K, Lk, D, scale);
+      row_mask, lse_e, lse_in, lse_bg, c_rows, dke, hpe, K, Lk, D, scale);
   return cudaGetLastError();
 }
 
@@ -606,9 +616,9 @@ __device__ __forceinline__ void mask_keys(float (&s)[32], int k0, int Lk, int ti
 template <int DV, int NC>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
 sweep_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
-             const float* __restrict__ row_mask, int mask_len, int mode, float* __restrict__ lse,
-             float2* __restrict__ part, __nv_bfloat16* __restrict__ p, int R, int Lk, int Lk_pad,
-             int splits, float scale_log2) {
+             const float* __restrict__ row_mask, int hpe, int mask_len, int mode,
+             float* __restrict__ lse, float2* __restrict__ part, __nv_bfloat16* __restrict__ p,
+             int R, int Lk, int Lk_pad, int splits, float scale_log2) {
   using T = Tiles<DV>;
   constexpr int TB = T::TB, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -619,6 +629,7 @@ sweep_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUt
   const int t0 = z * per, t1 = mode == BASE_LSE ? nt : min(nt, t0 + per);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) rg.init(1, 128 * NC);
+  row_mask += (size_t)(h / hpe) * mask_len;   // this head's edit
   const bool live = mode == BASE_LSE ? any_live(row_mask, 0, mask_len)
                                      : any_live(row_mask, r0, min(R, r0 + NC * TILE));
   if (!live) {
@@ -842,8 +853,8 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 corr_wgmma_kernel(__grid_constant__ const CUtensorMap tqb, __grid_constant__ const CUtensorMap tkb,
                   __grid_constant__ const CUtensorMap tpe, const float* __restrict__ lse_b,
                   const float* __restrict__ inpaint, const float* __restrict__ background,
-                  const float* __restrict__ row_mask, unsigned long long* __restrict__ keys, int K,
-                  int L, int Lk, float scale_log2) {
+                  const float* __restrict__ row_mask, unsigned long long* __restrict__ keys, int hpe,
+                  int K, int L, int Lk, float scale_log2) {
   using T = Tiles<DV>;
   constexpr int TB = T::TB, ST = CorrStages<DV, NC>::value, SB = TB + CH * BOX;
   extern __shared__ uint8_t smem_raw[];
@@ -854,7 +865,10 @@ corr_wgmma_kernel(__grid_constant__ const CUtensorMap tqb, __grid_constant__ con
   const int nt = (Lk + TILE - 1) / TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) rg.init(1, 128 * NC);
-  live_chunks(row_mask, K, list);
+  const size_t edit = h / hpe;   // this head's edit
+  inpaint += edit * L;
+  background += edit * L;
+  live_chunks(row_mask + edit * K, K, list);
   __syncthreads();
   const int nlive = list[chunks_of(K)];
   if (nlive == 0) return;
@@ -950,12 +964,12 @@ corr_wgmma_kernel(__grid_constant__ const CUtensorMap tqb, __grid_constant__ con
 __global__ void corr_finalize_kernel(const unsigned long long* __restrict__ keys,
                                      const float* __restrict__ row_mask, float* __restrict__ p_in,
                                      float* __restrict__ p_bg, int* __restrict__ j_in,
-                                     int* __restrict__ j_bg, int H, int K) {
+                                     int* __restrict__ j_bg, int H, int hpe, int K) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= H * K) return;
   float v[2] = {NEG_INF, NEG_INF};
   int j[2] = {0, 0};
-  if (row_mask[t % K] > 0.5f) {
+  if (row_mask[(size_t)(t / K / hpe) * K + t % K] > 0.5f) {
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       const unsigned long long key = keys[(size_t)t * 2 + m];
@@ -988,8 +1002,8 @@ bwd_rows_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
                 const float* __restrict__ lse_e, const float* __restrict__ lse_in,
                 const float* __restrict__ lse_bg, const float* __restrict__ g_in,
                 const float* __restrict__ g_bg, float* __restrict__ c_part,
-                float* __restrict__ a_part, float* __restrict__ b_part, int H, int K, int Lk, int D,
-                int splits, float scale_log2) {
+                float* __restrict__ a_part, float* __restrict__ b_part, int H, int hpe, int K, int Lk,
+                int D, int splits, float scale_log2) {
   using T = Tiles<DV>;
   constexpr int TB = T::TB, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1000,7 +1014,7 @@ bwd_rows_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
   const int t0 = z * per, t1 = min(nt, t0 + per);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) rg.init(1, 128);
-  if (!any_live(row_mask, i0, min(K, i0 + TILE))) return;
+  if (!any_live(row_mask + (size_t)(h / hpe) * K, i0, min(K, i0 + TILE))) return;
 
   if (warp == 4) {  // producer
     if (lane == 0) {
@@ -1107,13 +1121,13 @@ bwd_rows_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
 // split order; 0 for dead rows.
 __global__ void bwd_merge_kernel(const float* __restrict__ row_mask, const float* __restrict__ c_part,
                                  const float* __restrict__ a_part, const float* __restrict__ b_part,
-                                 float* __restrict__ c_rows, float* __restrict__ dqe, int H, int K,
-                                 int D, int splits, float scale) {
+                                 float* __restrict__ c_rows, float* __restrict__ dqe, int H, int hpe,
+                                 int K, int D, int splits, float scale) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= H * K * D) return;
   const int row = t / D, d = t - row * D;   // row = h * K + i
   float out = 0.f, c = 0.f;
-  if (row_mask[row % K] > 0.5f) {
+  if (row_mask[(size_t)(row / K / hpe) * K + row % K] > 0.5f) {
     float a = 0.f, b = 0.f;
     const size_t plane = (size_t)H * K * D;
     for (int z = 0; z < splits; ++z) {
@@ -1145,7 +1159,8 @@ bwd_keys_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
                 const float* __restrict__ lse_e, const float* __restrict__ lse_in,
                 const float* __restrict__ lse_bg, const float* __restrict__ g_in,
                 const float* __restrict__ g_bg, const float* __restrict__ c_rows,
-                float* __restrict__ dke, int K, int Lk, int D, float scale, float scale_log2) {
+                float* __restrict__ dke, int hpe, int K, int Lk, int D, float scale,
+                float scale_log2) {
   using T = Tiles<DV>;
   constexpr int TB = T::TB, ST = KeysStages<DV>::value;
   extern __shared__ uint8_t smem_raw[];
@@ -1155,7 +1170,7 @@ bwd_keys_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
   const int h = blockIdx.y, k0 = blockIdx.x * TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) rg.init(32, 128);
-  live_chunks(row_mask, K, list);
+  live_chunks(row_mask + (size_t)(h / hpe) * K, K, list);
   __syncthreads();
   const int nlive = list[chunks_of(K)];
 
@@ -1244,9 +1259,9 @@ bwd_keys_kernel(__grid_constant__ const CUtensorMap tqe, __grid_constant__ const
 // ------------------------------------------------------------ bf16 launches
 
 template <int DV, int NC>
-cudaError_t sweep(const CUtensorMap& tq, const CUtensorMap& tk, const float* row_mask, int mask_len,
-                  int mode, float* lse, float2* part, __nv_bfloat16* p, int H, int R, int Lk,
-                  int Lk_pad, int splits, float scale_log2, cudaStream_t s) {
+cudaError_t sweep(const CUtensorMap& tq, const CUtensorMap& tk, const float* row_mask, int hpe,
+                  int mask_len, int mode, float* lse, float2* part, __nv_bfloat16* p, int H, int R,
+                  int Lk, int Lk_pad, int splits, float scale_log2, cudaStream_t s) {
   using T = Tiles<DV>;
   const size_t smem = ring_smem(NC * T::TB, T::TB, T::STAGES, 0);
   auto kern = sweep_kernel<DV, NC>;
@@ -1254,15 +1269,15 @@ cudaError_t sweep(const CUtensorMap& tq, const CUtensorMap& tk, const float* row
   if (e != cudaSuccess) return e;
   const int per = NC * TILE;
   kern<<<dim3((R + per - 1) / per, H, mode == BASE_LSE ? 1 : splits), NC * 128 + 32, smem, s>>>(
-      tq, tk, row_mask, mask_len, mode, lse, part, p, R, Lk, Lk_pad, splits, scale_log2);
+      tq, tk, row_mask, hpe, mask_len, mode, lse, part, p, R, Lk, Lk_pad, splits, scale_log2);
   return cudaGetLastError();
 }
 
 template <int DV, int NC>
 cudaError_t corr_launch(const CUtensorMap& tqb, const CUtensorMap& tkb, const CUtensorMap& tpe,
                         const float* lse_b, const float* inpaint, const float* background,
-                        const float* row_mask, unsigned long long* keys, int H, int K, int L,
-                        int Lk, float scale_log2, cudaStream_t s) {
+                        const float* row_mask, unsigned long long* keys, int H, int hpe, int K,
+                        int L, int Lk, float scale_log2, cudaStream_t s) {
   const size_t smem = ring_smem(NC * Tiles<DV>::TB, Tiles<DV>::TB + CH * BOX, CorrStages<DV, NC>::value,
                                 CH * 128 * 8 + chunk_list_bytes(K));
   auto kern = corr_wgmma_kernel<DV, NC>;
@@ -1270,7 +1285,7 @@ cudaError_t corr_launch(const CUtensorMap& tqb, const CUtensorMap& tkb, const CU
   const cudaError_t e = prepare_at_least(kern, smem, prepared);
   if (e != cudaSuccess) return e;
   kern<<<dim3((L + NC * TILE - 1) / (NC * TILE), H), (NC + 1) * 128, smem, s>>>(
-      tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, K, L, Lk, scale_log2);
+      tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, hpe, K, L, Lk, scale_log2);
   return cudaGetLastError();
 }
 
@@ -1279,8 +1294,8 @@ cudaError_t corr_fwd_bf16(const void* qe, const void* ke, const void* qb, const 
                           float2* part, unsigned long long* keys, const float* inpaint,
                           const float* background, const float* row_mask, float* lse_e,
                           float* lse_b, float* p_in, float* p_bg, int* j_in, int* j_bg, int H,
-                          int K, int L, int Lk, int D, int Lk_pad, int splits, int nc, float scale,
-                          cudaStream_t s) {
+                          int hpe, int K, int L, int Lk, int D, int Lk_pad, int splits, int nc,
+                          float scale, cudaStream_t s) {
   CUtensorMap tqe, tke, tqb, tkb, tpe;
   if ((nc != 1 && nc != 2) || !tensor_map(&tqe, qe, H, K, D) ||
       !tensor_map(&tke, ke, H, Lk, D) || !tensor_map(&tqb, qb, H, L, D) ||
@@ -1288,22 +1303,22 @@ cudaError_t corr_fwd_bf16(const void* qe, const void* ke, const void* qb, const 
     return cudaErrorInvalidValue;
   const float sl2 = scale * LOG2E;
   auto* pb = static_cast<__nv_bfloat16*>(pe);
-  cudaError_t e = sweep<DV, 2>(tqb, tkb, row_mask, K, BASE_LSE, lse_b, nullptr, nullptr, H, L, Lk,
-                               Lk_pad, 1, sl2, s);
+  cudaError_t e = sweep<DV, 2>(tqb, tkb, row_mask, hpe, K, BASE_LSE, lse_b, nullptr, nullptr, H, L,
+                               Lk, Lk_pad, 1, sl2, s);
   if (e != cudaSuccess) return e;
-  if ((e = sweep<DV, 1>(tqe, tke, row_mask, K, EDIT_LSE, nullptr, part, nullptr, H, K, Lk, Lk_pad,
+  if ((e = sweep<DV, 1>(tqe, tke, row_mask, hpe, K, EDIT_LSE, nullptr, part, nullptr, H, K, Lk,
+                        Lk_pad, splits, sl2, s)) != cudaSuccess)
+    return e;
+  if ((e = sweep<DV, 1>(tqe, tke, row_mask, hpe, K, EDIT_P, lse_e, part, pb, H, K, Lk, Lk_pad,
                         splits, sl2, s)) != cudaSuccess)
     return e;
-  if ((e = sweep<DV, 1>(tqe, tke, row_mask, K, EDIT_P, lse_e, part, pb, H, K, Lk, Lk_pad, splits,
-                        sl2, s)) != cudaSuccess)
-    return e;
-  e = nc == 2 ? corr_launch<DV, 2>(tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, H, K,
-                                   L, Lk, sl2, s)
-              : corr_launch<DV, 1>(tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, H, K,
-                                   L, Lk, sl2, s);
+  e = nc == 2 ? corr_launch<DV, 2>(tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, H,
+                                   hpe, K, L, Lk, sl2, s)
+              : corr_launch<DV, 1>(tqb, tkb, tpe, lse_b, inpaint, background, row_mask, keys, H,
+                                   hpe, K, L, Lk, sl2, s);
   if (e != cudaSuccess) return e;
   corr_finalize_kernel<<<(H * K + 255) / 256, 256, 0, s>>>(keys, row_mask, p_in, p_bg, j_in, j_bg,
-                                                           H, K);
+                                                           H, hpe, K);
   return cudaGetLastError();
 }
 
@@ -1312,8 +1327,8 @@ cudaError_t corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const 
                           const void* q_bg, const float* g_in, const float* g_bg,
                           const float* row_mask, const float* lse_e, const float* lse_in,
                           const float* lse_bg, float* c_part, float* a_part, float* b_part,
-                          float* c_rows, float* dqe, float* dke, int H, int K, int Lk, int D,
-                          int splits, float scale, cudaStream_t s) {
+                          float* c_rows, float* dqe, float* dke, int H, int hpe, int K, int Lk,
+                          int D, int splits, float scale, cudaStream_t s) {
   using T = Tiles<DV>;
   CUtensorMap tqe, tqin, tqbg, tke, tkb;
   if (!tensor_map(&tqe, qe, H, K, D) || !tensor_map(&tqin, q_in, H, K, D) ||
@@ -1327,11 +1342,11 @@ cudaError_t corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const 
   if (e_r != cudaSuccess) return e_r;
   kr<<<dim3((K + TILE - 1) / TILE, H, splits), 160, smem_r, s>>>(
       tqe, tqin, tqbg, tke, tkb, row_mask, lse_e, lse_in, lse_bg, g_in, g_bg, c_part, a_part, b_part,
-      H, K, Lk, D, splits, sl2);
+      H, hpe, K, Lk, D, splits, sl2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   bwd_merge_kernel<<<(H * K * D + 255) / 256, 256, 0, s>>>(row_mask, c_part, a_part, b_part, c_rows,
-                                                           dqe, H, K, D, splits, scale);
+                                                           dqe, H, hpe, K, D, splits, scale);
   if ((e = cudaGetLastError()) != cudaSuccess || dke == nullptr) return e;
   constexpr int KST = KeysStages<DV>::value;
   const size_t smem_k =
@@ -1341,8 +1356,8 @@ cudaError_t corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const 
   const cudaError_t e_k = prepare_at_least(kk, smem_k, prepared_k);
   if (e_k != cudaSuccess) return e_k;
   kk<<<dim3((Lk + TILE - 1) / TILE, H), 160, smem_k, s>>>(tqe, tqin, tqbg, tke, tkb, row_mask, lse_e,
-                                                         lse_in, lse_bg, g_in, g_bg, c_rows, dke, K,
-                                                         Lk, D, scale, sl2);
+                                                         lse_in, lse_bg, g_in, g_bg, c_rows, dke, hpe,
+                                                         K, Lk, D, scale, sl2);
   return cudaGetLastError();
 }
 
@@ -1364,19 +1379,21 @@ extern "C" int gd_corr_spans(int L) { return (L + JSPAN - 1) / JSPAN; }
 extern "C" int gd_corr_fwd(const void* qe, const void* ke, const void* qb, const void* kb,
                            const float* inpaint, const float* background, const float* row_mask,
                            float* lse_e, float* lse_b, float* part_val, int* part_idx,
-                           float* p_in, float* p_bg, int* j_in, int* j_bg, int H, int K, int L,
-                           int Lk, int D, float scale, int dtype, void* stream) {
+                           float* p_in, float* p_bg, int* j_in, int* j_bg, int H, int hpe, int K,
+                           int L, int Lk, int D, float scale, int dtype, void* stream) {
+  if (hpe < 1 || H % hpe != 0) return cudaErrorInvalidValue;
   GD_DISPATCH_F32(dtype, D, corr_fwd, qe, ke, qb, kb, inpaint, background, row_mask, lse_e, lse_b,
-              part_val, part_idx, p_in, p_bg, j_in, j_bg, H, K, L, Lk, D, scale,
+              part_val, part_idx, p_in, p_bg, j_in, j_bg, H, hpe, K, L, Lk, D, scale,
               (cudaStream_t)stream);
 }
 
 extern "C" int gd_corr_bwd(const void* qe, const void* ke, const void* kb, const void* q_in,
                            const void* q_bg, const float* g_in, const float* g_bg,
                            const float* row_mask, float* scratch, float* dqe, float* dke, int H,
-                           int K, int Lk, int D, float scale, int dtype, void* stream) {
+                           int hpe, int K, int Lk, int D, float scale, int dtype, void* stream) {
+  if (hpe < 1 || H % hpe != 0) return cudaErrorInvalidValue;
   GD_DISPATCH_F32(dtype, D, corr_bwd, qe, ke, kb, q_in, q_bg, g_in, g_bg, row_mask, scratch, dqe, dke,
-              H, K, Lk, D, scale, (cudaStream_t)stream);
+              H, hpe, K, Lk, D, scale, (cudaStream_t)stream);
 }
 
 // bf16: D a multiple of 8 up to 80 (the wrapper pads: the loss layers are
@@ -1385,32 +1402,36 @@ extern "C" int gd_corr_fwd_bf16(const void* qe, const void* ke, const void* qb, 
                                 void* pe, void* part, void* keys, const float* inpaint,
                                 const float* background, const float* row_mask, float* lse_e,
                                 float* lse_b, float* p_in, float* p_bg, int* j_in, int* j_bg, int H,
-                                int K, int L, int Lk, int D, int Lk_pad, int splits, int nc,
+                                int hpe, int K, int L, int Lk, int D, int Lk_pad, int splits, int nc,
                                 float scale, void* stream) {
-  if (D < 8 || D > 80 || D % 8 != 0 || Lk_pad % 64 != 0 || splits < 1) return cudaErrorInvalidValue;
+  if (D < 8 || D > 80 || D % 8 != 0 || Lk_pad % 64 != 0 || splits < 1 || hpe < 1 || H % hpe != 0)
+    return cudaErrorInvalidValue;
   auto* part2 = static_cast<float2*>(part);
   auto* keys64 = static_cast<unsigned long long*>(keys);
   auto st = (cudaStream_t)stream;
   if (D <= 40)
     return corr_fwd_bf16<40>(qe, ke, qb, kb, pe, part2, keys64, inpaint, background, row_mask, lse_e,
-                             lse_b, p_in, p_bg, j_in, j_bg, H, K, L, Lk, D, Lk_pad, splits, nc, scale,
-                             st);
+                             lse_b, p_in, p_bg, j_in, j_bg, H, hpe, K, L, Lk, D, Lk_pad, splits, nc,
+                             scale, st);
   return corr_fwd_bf16<80>(qe, ke, qb, kb, pe, part2, keys64, inpaint, background, row_mask, lse_e,
-                           lse_b, p_in, p_bg, j_in, j_bg, H, K, L, Lk, D, Lk_pad, splits, nc, scale,
-                           st);
+                           lse_b, p_in, p_bg, j_in, j_bg, H, hpe, K, L, Lk, D, Lk_pad, splits, nc,
+                           scale, st);
 }
 
 extern "C" int gd_corr_bwd_bf16(const void* qe, const void* ke, const void* kb, const void* q_in,
                                 const void* q_bg, const float* g_in, const float* g_bg,
                                 const float* row_mask, const float* lse_e, const float* lse_in,
                                 const float* lse_bg, float* c_part, float* a_part, float* b_part,
-                                float* c_rows, float* dqe, float* dke, int H, int K, int Lk, int D,
-                                int splits, float scale, void* stream) {
-  if (D < 8 || D > 80 || D % 8 != 0 || splits < 1) return cudaErrorInvalidValue;
+                                float* c_rows, float* dqe, float* dke, int H, int hpe, int K, int Lk,
+                                int D, int splits, float scale, void* stream) {
+  if (D < 8 || D > 80 || D % 8 != 0 || splits < 1 || hpe < 1 || H % hpe != 0)
+    return cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (D <= 40)
     return corr_bwd_bf16<40>(qe, ke, kb, q_in, q_bg, g_in, g_bg, row_mask, lse_e, lse_in, lse_bg,
-                             c_part, a_part, b_part, c_rows, dqe, dke, H, K, Lk, D, splits, scale, st);
+                             c_part, a_part, b_part, c_rows, dqe, dke, H, hpe, K, Lk, D, splits,
+                             scale, st);
   return corr_bwd_bf16<80>(qe, ke, kb, q_in, q_bg, g_in, g_bg, row_mask, lse_e, lse_in, lse_bg,
-                           c_part, a_part, b_part, c_rows, dqe, dke, H, K, Lk, D, splits, scale, st);
+                           c_part, a_part, b_part, c_rows, dqe, dke, H, hpe, K, Lk, D, splits,
+                           scale, st);
 }

@@ -36,10 +36,10 @@ SIGNATURES = {
     "gd_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     "gd_flash_bwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "gd_corr_spans": [_I],
-    "gd_corr_fwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
-    "gd_corr_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
-    "gd_corr_fwd_bf16": [_P] * 16 + [_I] * 8 + [_F, _P],
-    "gd_corr_bwd_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
+    "gd_corr_fwd": [_P] * 15 + [_I] * 6 + [_F, _I, _P],
+    "gd_corr_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
+    "gd_corr_fwd_bf16": [_P] * 16 + [_I] * 9 + [_F, _P],
+    "gd_corr_bwd_bf16": [_P] * 17 + [_I] * 6 + [_F, _P],
     "gd_splat_workspace": [_I] * 4,
     "gd_splat_fused": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
 }

@@ -15,6 +15,12 @@ forward also returns the natural-log LSEs of the edit rows (H, K) and the
 base rows (H, L); the autograd Function saves them, and the backward
 takes each row's probabilities as exp(s - lse), with lse_b gathered at
 the argmax rows, instead of computing any LSE again.
+
+A lockstep group of E edits (the JAX kernels under `jax.vmap`, which gives
+their grids an edit axis) is one launch: the heads are E * heads, edit-major,
+and the masks carry the edit axis, inpaint and background (E, L) and
+row_mask (E, K); the heads of edit e read edit e's masks.  (L,) and (K,)
+masks are one edit's.
 """
 
 from __future__ import annotations
@@ -41,6 +47,22 @@ KEY_SPLIT = 8      # most key tiles of one block of a split key sweep
 # Plain versions
 # ---------------------------------------------------------------------------
 
+def edit_masks(h: int, inpaint, background, row_mask):
+    """The masks with their edit axis, (E, L), (E, L), (E, K), and the heads
+    of each edit, H / E; (L,) and (K,) masks are one edit's."""
+    inpaint, background, row_mask = (m if m.dim() == 2 else m[None]
+                                     for m in (inpaint, background, row_mask))
+    e = inpaint.shape[0]
+    if background.shape[0] != e or row_mask.shape[0] != e or h % e:
+        raise ValueError(f"masks of {inpaint.shape[0]}, {background.shape[0]} and "
+                         f"{row_mask.shape[0]} edits for {h} heads")
+    return inpaint, background, row_mask, h // e
+
+
+def _per_head(m, hpe: int):
+    """A per-edit mask (E, N) as per head (E * hpe, N)."""
+    return m.repeat_interleave(hpe, dim=0)
+
 def _probs(q, k, scale):
     """softmax(q k^T * scale) in float32, rounded to bf16 (the XLA loss
     path's materialization cast)."""
@@ -57,17 +79,19 @@ def corr_fwd_plain(qe, ke, qb, kb, inpaint, background, row_mask, scale):
     """Plain forward (materializes both maps and corr):
     (p_in, p_bg, j_in, j_bg, lse_e, lse_b), the LSEs (H, K) and (H, L) for
     the backward."""
+    inpaint, background, row_mask, hpe = edit_masks(qe.shape[0], inpaint, background, row_mask)
+    inpaint, background, row_mask = (_per_head(m, hpe) for m in (inpaint, background, row_mask))
     pe = _probs(qe, ke, scale).float()
     pb = _probs(qb, kb, scale).float()
     corr = torch.matmul(pe, pb.transpose(-1, -2))
     masked = torch.tensor(MASKED, dtype=torch.float32, device=corr.device)
-    c_in = torch.where(inpaint[None, None, :] > 0.5, corr, masked)
-    c_bg = torch.where(background[None, None, :] > 0.5, corr, masked)
+    c_in = torch.where(inpaint[:, None, :] > 0.5, corr, masked)
+    c_bg = torch.where(background[:, None, :] > 0.5, corr, masked)
     # torch.max returns the first maximal index, as jnp.argmax
     p_in, j_in = torch.max(c_in, dim=-1)
     p_bg, j_bg = torch.max(c_bg, dim=-1)
     j_in, j_bg = j_in.int(), j_bg.int()
-    dead = row_mask[None, :] < 0.5
+    dead = row_mask < 0.5
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=corr.device)
     zero = torch.zeros((), dtype=torch.int32, device=corr.device)
     return (torch.where(dead, neg, p_in), torch.where(dead, neg, p_bg),
@@ -93,7 +117,8 @@ def corr_bwd_plain(qe, ke, qb, kb, j_in, j_bg, g_in, g_bg, row_mask, lse_e, lse_
     d_pe = (g_in[..., None] * probs(_gather_rows(qb, j_in), kb, lse_of(j_in)).to(torch.bfloat16).float()
             + g_bg[..., None] * probs(_gather_rows(qb, j_bg), kb, lse_of(j_bg)).to(torch.bfloat16).float())
     pe = probs(qe, ke, lse_e)
-    live = row_mask[None, :, None] > 0.5
+    _, _, row_mask, hpe = edit_masks(qe.shape[0], row_mask, row_mask, row_mask)
+    live = _per_head(row_mask, hpe)[..., None] > 0.5
     t = torch.where(live, pe * (d_pe - torch.sum(d_pe * pe, dim=-1, keepdim=True)), 0.0)
     d_qe = torch.matmul(t, ke.float()).to(qe.dtype) * scale
     d_ke = torch.matmul(t.transpose(-1, -2), qe.float()).to(ke.dtype) * scale
@@ -117,7 +142,8 @@ def corr_plan(h: int, k_rows: int, l: int, lk: int, d: int) -> dict:
     backward sweeps (each split takes ceil(tiles / splits) tiles, at most
     KEY_SPLIT), and the correlation kernel's warpgroups of 64 base rows a
     block: two (each loaded P_e tile then feeds 128 rows) where that still
-    gives a block per SM, else one."""
+    gives a block per SM, else one.  A group's H counts the heads of all
+    its edits."""
     nt = _tiles(lk, TILE)
     return dict(d_pad=-(-d // 8) * 8, lk_pad=nt * TILE, splits=_tiles(nt, KEY_SPLIT),
                 warpgroups=2 if h * _tiles(l, 2 * TILE) >= SMS else 1,
@@ -154,10 +180,12 @@ def corr_fwd_cuda(qe, ke, qb, kb, inpaint, background, row_mask, scale):
     _check(qe, ke, qb, kb)
     h, k_rows, d = qe.shape
     l, lk = qb.shape[1], ke.shape[1]
-    masks = [m.float().contiguous() for m in (inpaint, background, row_mask)]
+    *masks, hpe = edit_masks(h, inpaint, background, row_mask)
+    masks = [m.float().contiguous() for m in masks]
     _build.require_cuda(qe, *masks)
-    if masks[0].shape != (l,) or masks[1].shape != (l,) or masks[2].shape != (k_rows,):
-        raise ValueError("inpaint/background must be (L,) and row_mask (K,)")
+    e = h // hpe
+    if masks[0].shape != (e, l) or masks[1].shape != (e, l) or masks[2].shape != (e, k_rows):
+        raise ValueError("inpaint/background must be (E, L) or (L,), row_mask (E, K) or (K,)")
     lib = _build.lib()
     f32 = dict(dtype=torch.float32, device=qe.device)
     lse_e = torch.empty((h, k_rows), **f32)
@@ -175,7 +203,7 @@ def corr_fwd_cuda(qe, ke, qb, kb, inpaint, background, row_mask, scale):
         err = lib.gd_corr_fwd_bf16(
             qe.data_ptr(), ke.data_ptr(), qb.data_ptr(), kb.data_ptr(), pe.data_ptr(),
             part.data_ptr(), keys.data_ptr(), *(m.data_ptr() for m in masks), *outs,
-            h, k_rows, l, lk, plan["d_pad"], plan["lk_pad"], plan["splits"],
+            h, hpe, k_rows, l, lk, plan["d_pad"], plan["lk_pad"], plan["splits"],
             plan["warpgroups"], float(scale), _build.stream_ptr(qe))
         _build.check(err, "gd_corr_fwd_bf16")
     else:
@@ -186,7 +214,7 @@ def corr_fwd_cuda(qe, ke, qb, kb, inpaint, background, row_mask, scale):
             qe.data_ptr(), ke.data_ptr(), qb.data_ptr(), kb.data_ptr(),
             *(m.data_ptr() for m in masks), outs[0], outs[1],
             part_val.data_ptr(), part_idx.data_ptr(), *outs[2:],
-            h, k_rows, l, lk, d, float(scale), _build.dtype_code(qe), _build.stream_ptr(qe))
+            h, hpe, k_rows, l, lk, d, float(scale), _build.dtype_code(qe), _build.stream_ptr(qe))
         _build.check(err, "gd_corr_fwd")
     _count("corr_fwd", h, k_rows, l, lk, d)
     return p_in, p_bg, j_in, j_bg, lse_e, lse_b
@@ -200,12 +228,15 @@ def corr_bwd_cuda(qe, ke, qb, kb, j_in, j_bg, g_in, g_bg, row_mask, lse_e, lse_b
     _check(qe, ke, qb, kb)
     h, k_rows, d = qe.shape
     l, lk = qb.shape[1], ke.shape[1]
+    _, _, row_mask, hpe = edit_masks(h, row_mask, row_mask, row_mask)
     g_in, g_bg, row_mask = (x.float().contiguous() for x in (g_in, g_bg, row_mask))
     _build.require_cuda(qe, g_in, g_bg, row_mask, lse_e, lse_b, j_in, j_bg)
-    if g_in.shape != (h, k_rows) or g_bg.shape != (h, k_rows) or row_mask.shape != (k_rows,) \
+    if g_in.shape != (h, k_rows) or g_bg.shape != (h, k_rows) \
+            or row_mask.shape != (h // hpe, k_rows) \
             or j_in.shape != (h, k_rows) or j_bg.shape != (h, k_rows) \
             or lse_e.shape != (h, k_rows) or lse_b.shape != (h, l):
-        raise ValueError("g_in/g_bg/j_in/j_bg/lse_e must be (H, K), lse_b (H, L), row_mask (K,)")
+        raise ValueError("g_in/g_bg/j_in/j_bg/lse_e must be (H, K), lse_b (H, L), "
+                         "row_mask (E, K) or (K,)")
     q_in = _gather_rows(qb, j_in).contiguous()
     q_bg = _gather_rows(qb, j_bg).contiguous()
     f32 = dict(dtype=torch.float32, device=qe.device)
@@ -228,7 +259,7 @@ def corr_bwd_cuda(qe, ke, qb, kb, j_in, j_bg, g_in, g_bg, row_mask, lse_e, lse_b
             lse_in.data_ptr(), lse_bg.data_ptr(), c_part.data_ptr(), a_part.data_ptr(),
             b_part.data_ptr(), c_rows.data_ptr(), d_qe.data_ptr(),
             None if d_ke is None else d_ke.data_ptr(),
-            h, k_rows, lk, d8, splits, float(scale), _build.stream_ptr(qe))
+            h, hpe, k_rows, lk, d8, splits, float(scale), _build.stream_ptr(qe))
         _build.check(err, "gd_corr_bwd_bf16")
         d_qe = _unpad(d_qe, d)
         d_ke = None if d_ke is None else _unpad(d_ke, d)
@@ -240,7 +271,7 @@ def corr_bwd_cuda(qe, ke, qb, kb, j_in, j_bg, g_in, g_bg, row_mask, lse_e, lse_b
             qe.data_ptr(), ke.data_ptr(), kb.data_ptr(), q_in.data_ptr(), q_bg.data_ptr(),
             g_in.data_ptr(), g_bg.data_ptr(), row_mask.data_ptr(), scratch.data_ptr(),
             d_qe.data_ptr(), d_ke.data_ptr(),
-            h, k_rows, lk, d, float(scale), _build.dtype_code(qe), _build.stream_ptr(qe))
+            h, hpe, k_rows, lk, d, float(scale), _build.dtype_code(qe), _build.stream_ptr(qe))
         _build.check(err, "gd_corr_bwd")
         d_ke = d_ke if need_dke else None
     _count("corr_bwd", h, k_rows, l, lk, d)
@@ -283,9 +314,12 @@ class RemovalCorrelation(torch.autograd.Function):
 def removal_correlation(qe, ke, qb, kb, inpaint, background, row_mask, scale: float):
     """Fused removal-loss correlation maxima (p_in, p_bg, j_in, j_bg), each
     (H, K).  qe (H, K, D) edit queries at the inpaint-row budget, ke/kb
-    (H, Lk, D), qb (H, L, D), inpaint/background (L,), row_mask (K,)."""
+    (H, Lk, D), qb (H, L, D), inpaint/background (L,), row_mask (K,); for a
+    group of E edits, H = E * heads (edit-major), inpaint/background (E, L)
+    and row_mask (E, K)."""
     if row_mask is None:
-        row_mask = torch.ones(qe.shape[1], dtype=torch.float32, device=qe.device)
+        row_mask = torch.ones(inpaint.shape[:-1] + (qe.shape[1],), dtype=torch.float32,
+                              device=qe.device)
     if qe.is_cuda:
         qe, ke, qb, kb = (x.contiguous() for x in (qe, ke, qb, kb))
     return RemovalCorrelation.apply(qe, ke, qb, kb, inpaint, background, row_mask, float(scale))

@@ -41,9 +41,11 @@ class Attention(nn.Module):
         lk = ctx.shape[1]
         d = inner // self.heads
         scale = d ** -0.5
-        q = self.to_q(x).reshape(s, lq, self.heads, d).transpose(1, 2)
-        k = self.to_k(ctx).reshape(s, lk, self.heads, d).transpose(1, 2)
-        v = self.to_v(ctx).reshape(s, lk, self.heads, d).transpose(1, 2)
+        # contiguous heads: the base and edit streams of the two passes of an
+        # optimize step then take one matmul path whatever the group size
+        q, k, v = (proj(y).reshape(s, n, self.heads, d).transpose(1, 2).contiguous()
+                   for proj, y, n in ((self.to_q, x, lq), (self.to_k, ctx, lk),
+                                      (self.to_v, ctx, lk)))
 
         if isinstance(edit, RecordTaps):
             # base-stream pass: vanilla attention + record q/k/v for the
@@ -53,20 +55,29 @@ class Attention(nn.Module):
         elif edit is None:
             out = edit_attention.fast_attention(q, k, v, scale)
         else:
+            e = edit.n_edits
             if edit.consume_taps:
-                # rebuild the [base, edit] pair at the attention boundary only
-                q_b, k_b, v_b = (t.detach() for t in edit.taps[self.tap_key])
-                q = torch.cat([q_b, q], dim=0)
-                k = torch.cat([k_b, k], dim=0)
-                v = torch.cat([v_b, v], dim=0)
+                # rebuild each edit's [base, edit...] streams at the
+                # attention boundary only: the taps pass ran one base stream
+                # an edit
+                q, k, v = (_join_tap(tap.detach(), x, e) for tap, x in
+                           zip(edit.taps[self.tap_key], (q, k, v)))
             out, loss, logs = edit_attention.edited_attention(
                 q, k, v, is_cross=is_cross, state=edit, scale=scale)
             if edit.consume_taps:
-                out = out[1:]
+                out = out.reshape(e, -1, *out.shape[1:])[:, 1:].reshape(
+                    s, *out.shape[1:]).contiguous()
             if acc is not None:
                 acc.add(loss, logs)
         out = out.transpose(1, 2).reshape(s, lq, inner)
         return self.to_out[0](out)
+
+
+def _join_tap(tap, x, e: int):
+    """Each of e edits' tap stream (e, H, L, D) put before its streams of x
+    (e*S, H, L, D) -> (e*(1+S), H, L, D)."""
+    return torch.cat([tap.reshape(e, 1, *tap.shape[1:]), x.reshape(e, -1, *x.shape[1:])],
+                     dim=1).reshape(-1, *x.shape[1:])
 
 
 class BasicTransformerBlock(nn.Module):

@@ -128,12 +128,13 @@ def warp_matrix(coords: torch.Tensor, radius: float = 1.3, tau: float = 1.0,
 
 
 def apply_warp_matrix(mat: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """(L_out, L_in) @ (H, W, C) -> (H_out, W_out, C), accumulating in the
-    operator's type."""
-    h, w, c = src.shape
-    side = int(mat.shape[0] ** 0.5)
-    out = mat @ src.reshape(h * w, c).to(mat.dtype)
-    return out.reshape(side, side, c).to(src.dtype)
+    """(..., L_out, L_in) @ (..., H, W, C) -> (..., H_out, W_out, C),
+    accumulating in the operator's type; leading axes (a group's edits) pair
+    each operator with its image."""
+    *lead, h, w, c = src.shape
+    side = int(mat.shape[-2] ** 0.5)
+    out = mat @ src.reshape(*lead, h * w, c).to(mat.dtype)
+    return out.reshape(*lead, side, side, c).to(src.dtype)
 
 
 def splat_batch(src: torch.Tensor, coords: torch.Tensor, **kw) -> torch.Tensor:

@@ -3,7 +3,7 @@ large_scale_editor.py, rebuilt): the port of
 `geodiffuser_tpu/parallel/driver.py`.
 
     python -m geodiffuser_tpu_torch.parallel.driver EXP_ROOT \\
-        [--checkpoint-dir DIR] [--steps N] [--size 512] [--device cuda]
+        [--checkpoint-dir DIR] [--steps N] [--size 512] [--device cuda] [--group-size N]
 
 Every `EXP_ROOT/<category>/<n>/` folder is routed by its category
 (`exp_io.edit_type_for_category`) to the editor, the remover or the stitch,
@@ -15,8 +15,10 @@ one session per edit type is reused across its edits, each folder caches its
 DDIM inversion, the native prefetcher decodes the next folders while the
 card runs the current edit, and processes named by GEODIFF_NUM_PROCESSES /
 GEODIFF_PROCESS_ID split the folders between them.  Edits run one at a
-time: the JAX package's lockstep group of edits (`--group-size` > 1) is not
-ported yet.
+time, or with `--group-size N` (N > 1) in lockstep groups of N edits of one
+type on the card (`parallel/batch.py`): groups in edit-type order, the last
+group of a type padded by repeating its last edit (the pad's results are
+not written), each edit's seconds its group's over its real edits.
 """
 
 from __future__ import annotations
@@ -148,22 +150,16 @@ def run_folder_sweep(
     weights without one); `config_overrides` are dataclasses.replace kwargs
     applied to every per-type EditConfig (e.g. num_ddim_steps for smoke
     runs); `use_native` picks the experiment loader (see
-    _experiment_loader).  `group_size` > 1 (the lockstep batch) raises
-    NotImplementedError."""
+    _experiment_loader).  `group_size` > 1 runs lockstep groups of that
+    many edits of one type (`ShardedEditSession.run_batch`); 0 or 1 the
+    edits one at a time."""
     from geodiffuser_tpu_torch.core.editor import EditSession
-    from geodiffuser_tpu_torch.core.pipeline import Pipeline
+    from geodiffuser_tpu_torch.core.pipeline import Pipeline, resolve_device
+    from geodiffuser_tpu_torch.parallel.batch import ShardedEditSession
 
+    resolve_device(device)   # no card raises before any folder is read
     if group_size is None:
         group_size = sharding.auto_group_size(image_size)
-    if group_size > 1:
-        raise NotImplementedError(
-            f"group_size={group_size}: the lockstep multi-edit batch "
-            "(geodiffuser_tpu/parallel/batch.py:ShardedEditSession.run_batch) is not ported "
-            "yet; use group_size 0 or 1 for the sequential sweep")
-
-    if pipe is None:
-        pipe = Pipeline.create(ModelConfig(), image_size=image_size,
-                               checkpoint_dir=checkpoint_dir, device=device)
 
     sessions: Dict[str, EditSession] = {}
     times: Dict[str, float] = {}
@@ -186,14 +182,38 @@ def run_folder_sweep(
         todo = sharding.partition_for_process(todo)
         log.info("process %d/%d: %d experiments assigned",
                  sharding.process_index(), sharding.process_count(), len(todo))
+    if not todo:
+        return times
+    if pipe is None:
+        pipe = Pipeline.create(ModelConfig(), image_size=image_size,
+                               checkpoint_dir=checkpoint_dir, device=device)
 
     def get_session(edit_type: str) -> EditSession:
         if edit_type not in sessions:
             cfg = config_for_edit_type(edit_type, num_ddim_steps)
             if config_overrides:
                 cfg = dataclasses.replace(cfg, **config_overrides)
-            sessions[edit_type] = EditSession(pipe, cfg, device=device)
+            cls = ShardedEditSession if group_size > 1 else EditSession
+            sessions[edit_type] = cls(pipe, cfg, device=device)
         return sessions[edit_type]
+
+    if group_size > 1:
+        # one session a type, its groups in type order; the loader serves
+        # the folders in that order while the card runs the current group
+        by_type: Dict[str, list] = {}
+        for et, folder in todo:
+            by_type.setdefault(et, []).append(folder)
+        loader = _experiment_loader([f for fs in by_type.values() for f in fs], use_native)
+        try:
+            for et, folders in by_type.items():
+                sess = get_session(et)
+                for start in range(0, len(folders), group_size):
+                    chunk = folders[start:start + group_size]
+                    _run_group(sess, et, chunk, [next(loader) for _ in chunk], group_size, times)
+        finally:
+            if hasattr(loader, "close"):
+                loader.close()
+        return times
 
     loader = _experiment_loader([f for _, f in todo], use_native)
     try:
@@ -212,6 +232,25 @@ def run_folder_sweep(
     return times
 
 
+def _run_group(sess, edit_type: str, folders, exps, group_size: int,
+               times: Dict[str, float]) -> None:
+    """One lockstep group of the experiments `exps` of `folders`: padded to
+    `group_size` by repeating its last edit, run, and each real edit's
+    result and loss log written to its folder; each edit's seconds are the
+    group's over its real edits."""
+    pad = group_size - len(exps)
+    inputs = [edit_inputs(edit_type, exp, sess.cfg, device=sess.device) for exp in exps]
+    inputs += inputs[-1:] * pad
+    t0 = time.time()
+    res = sess.run_batch(*(np.stack([x[k] for x in inputs]) for k in range(4)),
+                         exp_folders=list(folders) + list(folders[-1:]) * pad)
+    dt = time.time() - t0
+    for j, (folder, exp) in enumerate(zip(folders, exps)):
+        exp_io.save_results(exp, res.edited_images[j], res.edit_logs(j)[0])
+        times[folder] = dt / len(exps)
+    log.info("group of %d edits (%s, %d padded): %.1fs", len(exps), edit_type, pad, dt)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="GeoDiffuser batch editor (PyTorch port)")
     ap.add_argument("exp_root")
@@ -221,8 +260,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--group-size", type=int, default=None,
-                    help="lockstep group; default: auto (0, the sequential path: the "
-                         "lockstep batch is not ported); values above 1 raise")
+                    help="edits of one type run in lockstep on the card; default: auto "
+                         "(0, one edit at a time: no packing has been measured as a default)")
     ap.add_argument("--no-skip-existing", action="store_true")
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--no-native", action="store_true",

@@ -240,17 +240,20 @@ def test_stitch_inputs_match_jax_driver(sweep):
     assert image is exp.input_image and transform is exp.transform
 
 
-def test_driver_refuses_the_lockstep_batch_and_a_missing_card(tmp_path, monkeypatch):
-    """group_size > 1 raises (the lockstep batch is not ported) rather than
-    running the sequential path; the default device is the card, which
-    raises without one."""
-    with pytest.raises(NotImplementedError, match="lockstep"):
-        driver.run_folder_sweep(str(tmp_path), group_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="lockstep"):
-        driver.main([str(tmp_path), "--group-size", "2", "--device", "cpu"])
+def test_driver_refuses_the_lockstep_batch_and_a_missing_card(tmp_path, monkeypatch, capsys):
+    """group_size > 1 runs the lockstep batch (held against the sequential
+    sweep in tests/test_torch_port_batch.py; the test keeps its name from
+    when the driver refused it): over a tree with no experiment it returns
+    no edit, from the function and the command line, without building a
+    pipeline; the default device is the card, which raises without one,
+    for a group too."""
+    assert driver.run_folder_sweep(str(tmp_path), group_size=2, device="cpu") == {}
+    driver.main([str(tmp_path), "--group-size", "2", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["edits"] == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        driver.run_folder_sweep(str(tmp_path))
+    for group_size in (None, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            driver.run_folder_sweep(str(tmp_path), group_size=group_size)
 
 
 # ---------------------------------------------------------------------------

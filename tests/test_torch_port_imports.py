@@ -46,7 +46,8 @@ assert {"geodiffuser_tpu_torch.kernels.splat", "geodiffuser_tpu_torch.core.edito
         "geodiffuser_tpu_torch.ui.__main__", "geodiffuser_tpu_torch.ui.app",
         "geodiffuser_tpu_torch.models.midas_dpt", "geodiffuser_tpu_torch.models.zoedepth",
         "geodiffuser_tpu_torch.models.zoedepth_nk", "geodiffuser_tpu_torch.utils.profiling",
-        "geodiffuser_tpu_torch.utils.checkpoint"} <= set(names), names
+        "geodiffuser_tpu_torch.utils.checkpoint", "geodiffuser_tpu_torch.parallel.batch"
+        } <= set(names), names
 assert not bad, bad
 """
 
@@ -60,6 +61,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 IMPORT_DRIVER = r"""
 import sys
 import geodiffuser_tpu_torch.parallel.driver, geodiffuser_tpu_torch.native.loader
+import geodiffuser_tpu_torch.parallel.batch
 import geodiffuser_tpu_torch.utils.png, geodiffuser_tpu_torch.models.weights
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "geodiffuser_tpu", "PIL", "safetensors"))
