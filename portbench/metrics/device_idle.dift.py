@@ -1,0 +1,7 @@
+"""Share of the traced featurizations in which the device runs nothing, %."""
+
+from portbench.metrics import layers
+
+
+def read(rec):
+    return layers.device_idle(rec)
