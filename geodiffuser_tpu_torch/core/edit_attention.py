@@ -29,6 +29,7 @@ from geodiffuser_tpu_torch.kernels import flash_attention as fa
 from geodiffuser_tpu_torch.kernels import removal_corr as rc
 from geodiffuser_tpu_torch.ops import image as image_ops
 from geodiffuser_tpu_torch.ops import splat as splat_ops
+from geodiffuser_tpu_torch.utils.profiling import annotate
 
 LOG_KEYS = ("sim", "movement", "removal", "smoothness", "amodal")
 
@@ -397,28 +398,30 @@ def edited_attention(q, k, v, *, is_cross: bool, state: EditState, scale: float
     res = math.isqrt(l)
     if res * res != l or res not in state.masks:
         return fast_attention(q, k, v, scale), 0.0, zero_logs()
-    ms = state.masks[res]
-    e = state.n_edits
-    q, k, v = (x.reshape(e, -1, *x.shape[1:]) for x in (q, k, v))
-    n_van = state.n_vanilla_streams
-    van = slice(0, n_van)
-    if state.consume_taps:
-        # the vanilla streams start with the detached tap; detaching them
-        # all keeps autograd from running a backward whose cotangent is 0
-        out_v = fast_attention(q[:, van].detach(), k[:, van].detach(), v[:, van].detach(), scale)
-    else:
-        out_v = fast_attention(q[:, van], k[:, van], v[:, van], scale)
+    with annotate("gd.attn.edit"):
+        ms = state.masks[res]
+        e = state.n_edits
+        q, k, v = (x.reshape(e, -1, *x.shape[1:]) for x in (q, k, v))
+        n_van = state.n_vanilla_streams
+        van = slice(0, n_van)
+        if state.consume_taps:
+            # the vanilla streams start with the detached tap; detaching them
+            # all keeps autograd from running a backward whose cotangent is 0
+            out_v = fast_attention(q[:, van].detach(), k[:, van].detach(), v[:, van].detach(),
+                                   scale)
+        else:
+            out_v = fast_attention(q[:, van], k[:, van], v[:, van], scale)
 
-    in_window = state.self_window
-    if in_window is None:
-        in_window = state.self_replace_lo <= state.cur_step < state.self_replace_hi
-    if (is_cross or in_window) and state.mode == "remover":
-        out_e, loss, logs = _remover_stream(q, k, v, is_cross, state, ms, scale,
-                                            out_v[:, state.base_idx])
-    elif is_cross or in_window:
-        out_e, loss, logs = _editor_stream(q, k, v, is_cross, state, ms, scale)
-    else:
-        i = state.edit_idx
-        out_e = fast_attention(q[:, i], k[:, i], v[:, i], scale)
-        loss, logs = 0.0, zero_logs()
-    return torch.cat([out_v, out_e[:, None]], dim=1).reshape(n, h, l, d), loss, logs
+        in_window = state.self_window
+        if in_window is None:
+            in_window = state.self_replace_lo <= state.cur_step < state.self_replace_hi
+        if (is_cross or in_window) and state.mode == "remover":
+            out_e, loss, logs = _remover_stream(q, k, v, is_cross, state, ms, scale,
+                                                out_v[:, state.base_idx])
+        elif is_cross or in_window:
+            out_e, loss, logs = _editor_stream(q, k, v, is_cross, state, ms, scale)
+        else:
+            i = state.edit_idx
+            out_e = fast_attention(q[:, i], k[:, i], v[:, i], scale)
+            loss, logs = 0.0, zero_logs()
+        return torch.cat([out_v, out_e[:, None]], dim=1).reshape(n, h, l, d), loss, logs

@@ -53,6 +53,7 @@ from geodiffuser_tpu_torch.ops import image as image_ops
 from geodiffuser_tpu_torch.ops import splat as splat_ops
 from geodiffuser_tpu_torch.ops import transform_field as tf_ops
 from geodiffuser_tpu_torch.utils import exp_io
+from geodiffuser_tpu_torch.utils.profiling import PhaseTimer, annotate
 
 log = logging.getLogger(__name__)
 
@@ -214,59 +215,62 @@ class EditSession:
         logs, taps); logs is a list of E {key: float} dicts (one dict for one
         edit's shapes), or without `fetch_logs` the unfetched (keys,
         (E, 1 + K) device tensor) for `_host_logs`."""
-        one, latents2, context4, sgd_state, masks, warp_mats = _as_group(
-            latents2, context4, sgd_state, masks, warp_mats)
-        cfg = self.cfg
-        unet = self.pipeline.unet
-        e = latents2.shape[0]
-        rec = edit_state.RecordTaps()
-        with torch.no_grad():
-            unet(latents2[:, 0], t, context4[:, 2], rec)
-        state = self._state(masks, i, weights, radius, tau, use_cfg=False, compute_losses=True,
-                            warp_mats=warp_mats, consume_taps=True, self_window=self_window,
-                            past_obj=past_obj, taps=rec.taps)
-        latent_edit = latents2[:, 1].float().detach().requires_grad_(True)
-        ctx_edit = context4[:, 3].float().detach().requires_grad_(True)
-        acc = edit_state.LossAccumulator()
-        per_edit = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device).expand(e)
-        with torch.enable_grad():
-            unet(latent_edit, t, ctx_edit, state, acc)
-            loss = per_edit(acc.loss)
-            if loss.requires_grad:
-                # the edits' losses are independent: the gradient of their
-                # sum is each edit's own
-                gl, gc = torch.autograd.grad(loss.sum(), [latent_edit, ctx_edit],
-                                             allow_unused=True)
-            else:
-                gl = gc = None
-        gl = torch.zeros_like(latent_edit) if gl is None else gl
-        gc = torch.zeros_like(ctx_edit) if gc is None else gc
+        with annotate("gd.optimize"):
+            one, latents2, context4, sgd_state, masks, warp_mats = _as_group(
+                latents2, context4, sgd_state, masks, warp_mats)
+            cfg = self.cfg
+            unet = self.pipeline.unet
+            e = latents2.shape[0]
+            rec = edit_state.RecordTaps()
+            with torch.no_grad():
+                unet(latents2[:, 0], t, context4[:, 2], rec)
+            state = self._state(masks, i, weights, radius, tau, use_cfg=False, compute_losses=True,
+                                warp_mats=warp_mats, consume_taps=True, self_window=self_window,
+                                past_obj=past_obj, taps=rec.taps)
+            latent_edit = latents2[:, 1].float().detach().requires_grad_(True)
+            ctx_edit = context4[:, 3].float().detach().requires_grad_(True)
+            acc = edit_state.LossAccumulator()
+            per_edit = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                                 device=self.device).expand(e)
+            with torch.enable_grad():
+                unet(latent_edit, t, ctx_edit, state, acc)
+                loss = per_edit(acc.loss)
+                if loss.requires_grad:
+                    # the edits' losses are independent: the gradient of their
+                    # sum is each edit's own
+                    with annotate("gd.optimize.backward"):
+                        gl, gc = torch.autograd.grad(loss.sum(), [latent_edit, ctx_edit],
+                                                     allow_unused=True)
+                else:
+                    gl = gc = None
+            gl = torch.zeros_like(latent_edit) if gl is None else gl
+            gc = torch.zeros_like(ctx_edit) if gc is None else gc
 
-        with torch.no_grad():
-            orig_norm = optimization.edit_norms(latents2[:, 1])
-            res = self.pipeline.latent_size
-            mask_latent = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
-            new_latent, new_ctx, sgd_state = optimization.apply_update(
-                latents2[:, 1], context4[:, 3], gl, gc, lr_eff, mask_latent, sgd_state,
-                momentum=cfg.sgd_momentum)
-            latents2 = latents2.clone()
-            context4 = context4.clone()
-            if cfg.optimize_latents:
-                latents2[:, 1] = optimization.project_norm(new_latent, orig_norm)
-            if cfg.optimize_embeddings:
-                context4[:, 3] = new_ctx
-            keys = sorted(acc.logs)
-            vals = torch.stack([loss.detach()] + [per_edit(acc.logs[k]).detach() for k in keys],
-                               dim=1)
-        logs = (keys, vals)
-        if fetch_logs:
-            logs = self._host_logs(keys, vals)
-            logs = logs[0] if one else logs
-        if one:
-            latents2, context4 = latents2[0], context4[0]
-            sgd_state = None if sgd_state is None else optimization.SGDState(
-                sgd_state.mom_latent[0], sgd_state.mom_context[0])
-        return latents2, context4, sgd_state, logs, rec.taps
+            with torch.no_grad(), annotate("gd.optimize.update"):
+                orig_norm = optimization.edit_norms(latents2[:, 1])
+                res = self.pipeline.latent_size
+                mask_latent = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
+                new_latent, new_ctx, sgd_state = optimization.apply_update(
+                    latents2[:, 1], context4[:, 3], gl, gc, lr_eff, mask_latent, sgd_state,
+                    momentum=cfg.sgd_momentum)
+                latents2 = latents2.clone()
+                context4 = context4.clone()
+                if cfg.optimize_latents:
+                    latents2[:, 1] = optimization.project_norm(new_latent, orig_norm)
+                if cfg.optimize_embeddings:
+                    context4[:, 3] = new_ctx
+                keys = sorted(acc.logs)
+                vals = torch.stack([loss.detach()] + [per_edit(acc.logs[k]).detach() for k in keys],
+                                   dim=1)
+            logs = (keys, vals)
+            if fetch_logs:
+                logs = self._host_logs(keys, vals)
+                logs = logs[0] if one else logs
+            if one:
+                latents2, context4 = latents2[0], context4[0]
+                sgd_state = None if sgd_state is None else optimization.SGDState(
+                    sgd_state.mom_latent[0], sgd_state.mom_context[0])
+            return latents2, context4, sgd_state, logs, rec.taps
 
     @staticmethod
     def _host_logs(keys, vals):
@@ -290,41 +294,43 @@ class EditSession:
         pinning overwrites).  With the same step's taps: 2 streams
         [uncond_edit, cond_edit] of each edit, the taps standing in for
         cond_base's k/v.  pinned_base holds each edit's base latent."""
-        one, latents2, context4, _, masks, warp_mats = _as_group(
-            latents2, context4, None, masks, warp_mats)
-        cfg = self.cfg
-        e = latents2.shape[0]
-        state = self._state(masks, i, weights, radius, tau, use_cfg=True, compute_losses=False,
-                            warp_mats=warp_mats, slim_cfg=True, consume_taps=taps is not None,
-                            self_window=self_window, past_obj=past_obj, full_blend=full_blend,
-                            taps=taps)
-        lat_e = latents2[:, 1]
-        streams = ((lat_e, latents2[:, 0], lat_e), (1, 2, 3)) if taps is None else \
-            ((lat_e, lat_e), (1, 3))
-        lat_in = torch.stack(streams[0], dim=1)
-        ctx_in = context4[:, list(streams[1])]
-        eps = self.pipeline.unet(lat_in.reshape(-1, *lat_in.shape[2:]), t,
-                                 ctx_in.reshape(-1, *ctx_in.shape[2:]), state)
-        eps = eps.reshape(e, -1, *eps.shape[1:])
-        eps_g = eps[:, 0] + cfg.guidance_scale * (eps[:, -1] - eps[:, 0])
-        out = self._finish_cfg(state, masks, eps_g, lat_e, t, pinned_base.reshape(lat_e.shape),
-                               do_replace)
-        return out[0] if one else out
+        with annotate("gd.cfg"):
+            one, latents2, context4, _, masks, warp_mats = _as_group(
+                latents2, context4, None, masks, warp_mats)
+            cfg = self.cfg
+            e = latents2.shape[0]
+            state = self._state(masks, i, weights, radius, tau, use_cfg=True, compute_losses=False,
+                                warp_mats=warp_mats, slim_cfg=True, consume_taps=taps is not None,
+                                self_window=self_window, past_obj=past_obj, full_blend=full_blend,
+                                taps=taps)
+            lat_e = latents2[:, 1]
+            streams = ((lat_e, latents2[:, 0], lat_e), (1, 2, 3)) if taps is None else \
+                ((lat_e, lat_e), (1, 3))
+            lat_in = torch.stack(streams[0], dim=1)
+            ctx_in = context4[:, list(streams[1])]
+            eps = self.pipeline.unet(lat_in.reshape(-1, *lat_in.shape[2:]), t,
+                                     ctx_in.reshape(-1, *ctx_in.shape[2:]), state)
+            eps = eps.reshape(e, -1, *eps.shape[1:])
+            eps_g = eps[:, 0] + cfg.guidance_scale * (eps[:, -1] - eps[:, 0])
+            out = self._finish_cfg(state, masks, eps_g, lat_e, t, pinned_base.reshape(lat_e.shape),
+                                   do_replace)
+            return out[0] if one else out
 
     def _finish_cfg(self, state, masks, eps_g, lat_e, t, pinned_base, do_replace):
         """DDIM step on the edit streams (E, h, w, 4), base-trajectory
         pinning (editor.py:375-377) and, in editor mode, the hard latent
         warp-replace while i < latent_replace * T (editor.py:382-399).
         Returns (E, 2, h, w, 4)."""
-        new_edit = sched.ddim_step(self.pipeline.schedule, eps_g, t, lat_e,
-                                   self.cfg.num_ddim_steps)
-        base = pinned_base.reshape(new_edit.shape)
-        if do_replace and self.mode == "editor":
-            res = self.pipeline.latent_size
-            warped = splat_ops.apply_warp_matrix(state.warp_mats[res], base)
-            i_mask = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
-            new_edit = new_edit * (1.0 - i_mask) + i_mask * warped
-        return torch.stack([base, new_edit], dim=1)
+        with annotate("gd.cfg.finish"):
+            new_edit = sched.ddim_step(self.pipeline.schedule, eps_g, t, lat_e,
+                                       self.cfg.num_ddim_steps)
+            base = pinned_base.reshape(new_edit.shape)
+            if do_replace and self.mode == "editor":
+                res = self.pipeline.latent_size
+                warped = splat_ops.apply_warp_matrix(state.warp_mats[res], base)
+                i_mask = image_ops.binarize(masks[res].mask_new_warped_2d)[..., None]
+                new_edit = new_edit * (1.0 - i_mask) + i_mask * warped
+            return torch.stack([base, new_edit], dim=1)
 
     # ------------------------------------------------------------------- run
     def _sync(self):
@@ -342,55 +348,54 @@ class EditSession:
         and written after an inversion."""
         cfg = self.cfg
         dev = self.device
-        timings: Dict[str, float] = {}
-        t_start = time.time()
+        timer = PhaseTimer()
+        t_start = time.perf_counter()
 
-        image = np.asarray(image)
-        if image.dtype == np.uint8:
-            image = image.astype(np.float32) / 255.0
-        f32 = dict(dtype=torch.float32, device=dev)
-        image_t = torch.as_tensor(image, **f32)
-        mask_t = image_ops.binarize(torch.as_tensor(np.asarray(image_mask), **f32))
-        tfs, masks = self.preprocess_batch(
-            image_t[None], torch.as_tensor(np.asarray(depth), **f32)[None], mask_t[None],
-            torch.as_tensor(np.asarray(transform), **f32)[None])
-        full_blend = self._full_blend(masks)
-        ctx_cond = self.pipeline.encode_text([prompt])
-        ctx_uncond = self.pipeline.encode_text([cfg.uncond_text])
-        latent0 = self.pipeline.encode_image(image_t)
-        self._sync()
-        timings["preprocess"] = time.time() - t_start
+        with timer.phase("preprocess"):
+            image = np.asarray(image)
+            if image.dtype == np.uint8:
+                image = image.astype(np.float32) / 255.0
+            f32 = dict(dtype=torch.float32, device=dev)
+            image_t = torch.as_tensor(image, **f32)
+            mask_t = image_ops.binarize(torch.as_tensor(np.asarray(image_mask), **f32))
+            tfs, masks = self.preprocess_batch(
+                image_t[None], torch.as_tensor(np.asarray(depth), **f32)[None], mask_t[None],
+                torch.as_tensor(np.asarray(transform), **f32)[None])
+            full_blend = self._full_blend(masks)
+            ctx_cond = self.pipeline.encode_text([prompt])
+            ctx_uncond = self.pipeline.encode_text([cfg.uncond_text])
+            latent0 = self.pipeline.encode_image(image_t)
+            self._sync()
 
-        t_inv = time.time()
-        inv_key = self.inversion_key(image, prompt) if cfg.cache_inversion else None
-        all_latents = self._inv_cache_get(inv_key, exp_folder) if inv_key is not None else None
-        if all_latents is None:
-            all_latents, _ = inversion.ddim_invert(
-                self.pipeline, latent0, ctx_uncond, ctx_cond, guidance_scale=cfg.guidance_scale,
-                num_steps=cfg.num_ddim_steps, cfg_free=prompt == cfg.uncond_text)
-            if inv_key is not None:
-                self._inv_cache_put(inv_key, all_latents, exp_folder)
-        # null-text optimization (perform_inversion, reference editor.py:581-589;
-        # off by default, as in the reference)
-        uncond_per_step = None
-        if cfg.perform_inversion if use_null_text is None else use_null_text:
-            uncond_per_step = inversion.null_text_optimization(
-                self.pipeline, all_latents, ctx_uncond, ctx_cond, cfg.guidance_scale,
-                cfg.num_ddim_steps)
-        self._sync()
-        timings["inversion"] = time.time() - t_inv
+        with timer.phase("inversion"):
+            inv_key = self.inversion_key(image, prompt) if cfg.cache_inversion else None
+            all_latents = (self._inv_cache_get(inv_key, exp_folder) if inv_key is not None
+                           else None)
+            if all_latents is None:
+                all_latents, _ = inversion.ddim_invert(
+                    self.pipeline, latent0, ctx_uncond, ctx_cond,
+                    guidance_scale=cfg.guidance_scale, num_steps=cfg.num_ddim_steps,
+                    cfg_free=prompt == cfg.uncond_text)
+                if inv_key is not None:
+                    self._inv_cache_put(inv_key, all_latents, exp_folder)
+            # null-text optimization (perform_inversion, reference editor.py:581-589;
+            # off by default, as in the reference)
+            uncond_per_step = None
+            if cfg.perform_inversion if use_null_text is None else use_null_text:
+                uncond_per_step = inversion.null_text_optimization(
+                    self.pipeline, all_latents, ctx_uncond, ctx_cond, cfg.guidance_scale,
+                    cfg.num_ddim_steps)
+            self._sync()
 
-        t_loop = time.time()
-        latents2, loss_log, weight_log = self._edit_loop(
-            all_latents, ctx_uncond, ctx_cond, masks, full_blend, uncond_per_step, progress)
-        self._sync()
-        timings["edit_loop"] = time.time() - t_loop
+        with timer.phase("edit_loop"):
+            latents2, loss_log, weight_log = self._edit_loop(
+                all_latents, ctx_uncond, ctx_cond, masks, full_blend, uncond_per_step, progress)
+            self._sync()
 
-        t_post = time.time()
-        images, edited, warped_u8 = self._decode_post(latents2, image[None],
-                                                      mask_t[None].cpu().numpy(), masks, tfs)
-        timings["decode_post"] = time.time() - t_post
-        timings["total"] = time.time() - t_start
+        with timer.phase("decode_post"):
+            images, edited, warped_u8 = self._decode_post(latents2, image[None],
+                                                          mask_t[None].cpu().numpy(), masks, tfs)
+        timings = dict(timer.totals, total=time.perf_counter() - t_start)
         return EditResult(images=images[0], edited_image=edited[0],
                           loss_log=logs_of_edit(loss_log, 0), warped_preview=warped_u8[0],
                           timings=timings, weight_log=logs_of_edit(weight_log, 0),
@@ -458,25 +463,28 @@ class EditSession:
         def drain():
             """Fetch the pending logs and set each edit's adaptive weights."""
             nonlocal w_dev
-            for i_p, keys, vals in pending:
-                logs = self._host_logs(keys, vals)
-                loss_log[i_p] = {k: np.array([lg[k] for lg in logs]) for k in logs[0]}
-                if cfg.use_adaptive_optimization:
-                    for j, lg in enumerate(logs):
-                        if stitch:
-                            weights[j] = optimization.adaptive_step_stitching(
-                                weights[j], defaults, i_p, cfg.skip_optim_steps, n, lg["self/sim"])
-                        else:
-                            weights[j] = optimization.adaptive_step(
-                                weights[j], defaults, i_p, cfg.skip_optim_steps, n,
-                                lg["self/removal"], cfg.edit_type, cfg.removal_loss_value)
-                weight_log[i_p] = {f"{b}/{k_}": np.array([float(w[b][k_]) for w in weights])
-                                   for b, t_ in defaults.items() for k_ in t_}
-                if progress is not None:
-                    progress(i_p / n, desc=f"Editing loss: {logs[0]['total']:.4f}")
-            if pending:
+            if not pending:
+                return
+            with annotate("gd.edit.drain"):
+                for i_p, keys, vals in pending:
+                    logs = self._host_logs(keys, vals)
+                    loss_log[i_p] = {k: np.array([lg[k] for lg in logs]) for k in logs[0]}
+                    if cfg.use_adaptive_optimization:
+                        for j, lg in enumerate(logs):
+                            if stitch:
+                                weights[j] = optimization.adaptive_step_stitching(
+                                    weights[j], defaults, i_p, cfg.skip_optim_steps, n,
+                                    lg["self/sim"])
+                            else:
+                                weights[j] = optimization.adaptive_step(
+                                    weights[j], defaults, i_p, cfg.skip_optim_steps, n,
+                                    lg["self/removal"], cfg.edit_type, cfg.removal_loss_value)
+                    weight_log[i_p] = {f"{b}/{k_}": np.array([float(w[b][k_]) for w in weights])
+                                       for b, t_ in defaults.items() for k_ in t_}
+                    if progress is not None:
+                        progress(i_p / n, desc=f"Editing loss: {logs[0]['total']:.4f}")
                 w_dev = stacked_weights()
-            pending.clear()
+                pending.clear()
 
         last_opt = max([i for i in range(n)
                         if i < optimize_frac * n and i % cfg.skip_optim_steps == 0] + [-1])
@@ -491,48 +499,50 @@ class EditSession:
         first_optim_done = False
         for i, t in enumerate(timesteps):
             t = int(t)
-            if uncond_per_step is not None:
-                # both uncond streams take this step's embedding (editor.py:165-168)
-                context4 = context4.clone()
-                context4[0] = context4[1] = uncond_per_step[i][0]
             win, obj = self._phase_flags(i)
-            wm_i = min(i, tail_start) if tail_start < n else i
-            wm_key = (radius_sched[wm_i], round(tau_sched[wm_i], 6))
-            # only the editor's query warp and latent warp-replace read them
-            if wm_key not in wm_cache and self.mode == "editor":
-                wm_cache[wm_key] = edit_state.build_warp_matrices(
-                    masks, radius_sched[wm_i], tau_sched[wm_i], cfg.splat.z_beta)
-            wm = wm_cache.get(wm_key)
             do_optimize = (i < optimize_frac * n and i % cfg.skip_optim_steps == 0
                            and i >= cfg.fast_start_steps * n)
-            taps = None
-            if do_optimize:
-                drain()
-                lr_eff = (lr_first if cfg.use_optimizer
-                          else optimization.effective_lr(cfg.lr, i, cfg.skip_optim_steps, n))
+            with annotate("gd.edit.step", f"step={i} kind={'optimize' if do_optimize else 'cfg'}"):
+                if uncond_per_step is not None:
+                    # both uncond streams take this step's embedding (editor.py:165-168)
+                    context4 = context4.clone()
+                    context4[0] = context4[1] = uncond_per_step[i][0]
+                wm_i = min(i, tail_start) if tail_start < n else i
+                wm_key = (radius_sched[wm_i], round(tau_sched[wm_i], 6))
+                # only the editor's query warp and latent warp-replace read them
+                if wm_key not in wm_cache and self.mode == "editor":
+                    with annotate("gd.edit.warp"):
+                        wm_cache[wm_key] = edit_state.build_warp_matrices(
+                            masks, radius_sched[wm_i], tau_sched[wm_i], cfg.splat.z_beta)
+                wm = wm_cache.get(wm_key)
+                taps = None
+                if do_optimize:
+                    drain()
+                    lr_eff = (lr_first if cfg.use_optimizer
+                              else optimization.effective_lr(cfg.lr, i, cfg.skip_optim_steps, n))
 
-                def step(lat2, ctx4, sgd):
-                    out = self._optimize_step(lat2, ctx4, t, masks, i, w_dev, radius_sched[i],
-                                              tau_sched[i], lr_eff, sgd, wm, win, obj, False)
-                    pending.append((i, *out[3]))
-                    return out
+                    def step(lat2, ctx4, sgd):
+                        out = self._optimize_step(lat2, ctx4, t, masks, i, w_dev, radius_sched[i],
+                                                  tau_sched[i], lr_eff, sgd, wm, win, obj, False)
+                        pending.append((i, *out[3]))
+                        return out
 
-                if fast_start and not first_optim_done:
-                    def inner(lat2, ctx4, sgd):
-                        # each iteration's logs set the next one's weights
-                        out = step(lat2, ctx4, sgd)
-                        drain()
-                        return (*out[:3], {"total": float(loss_log[i]["total"][0])}, out[4])
+                    if fast_start and not first_optim_done:
+                        def inner(lat2, ctx4, sgd):
+                            # each iteration's logs set the next one's weights
+                            out = step(lat2, ctx4, sgd)
+                            drain()
+                            return (*out[:3], {"total": float(loss_log[i]["total"][0])}, out[4])
 
-                    latents2, context4, sgd_state, _, taps = optimize_iterations(
-                        inner, cfg.num_first_optim_steps, latents2, context4, sgd_state)
-                else:
-                    latents2, context4, sgd_state, _, taps = step(latents2, context4, sgd_state)
-                first_optim_done = True
-            latents2 = self._cfg_step(
-                latents2, context4, t, masks, i, w_dev, radius_sched[i], tau_sched[i],
-                all_latents[n - 1 - i], i < cfg.latent_replace * n, wm, win, obj, full_blend,
-                taps=taps)
+                        latents2, context4, sgd_state, _, taps = optimize_iterations(
+                            inner, cfg.num_first_optim_steps, latents2, context4, sgd_state)
+                    else:
+                        latents2, context4, sgd_state, _, taps = step(latents2, context4, sgd_state)
+                    first_optim_done = True
+                latents2 = self._cfg_step(
+                    latents2, context4, t, masks, i, w_dev, radius_sched[i], tau_sched[i],
+                    all_latents[n - 1 - i], i < cfg.latent_replace * n, wm, win, obj, full_blend,
+                    taps=taps)
         drain()
         return (latents2[None] if e == 1 else latents2), loss_log, weight_log
 

@@ -11,6 +11,7 @@ import torch
 
 from geodiffuser_tpu_torch.core import scheduler as sched
 from geodiffuser_tpu_torch.core.pipeline import Pipeline
+from geodiffuser_tpu_torch.utils.profiling import annotate
 
 
 @torch.no_grad()
@@ -27,16 +28,18 @@ def ddim_invert(pipeline: Pipeline, latent: torch.Tensor, context_uncond: torch.
     s0 = latent.shape[0]
     x = latent.float()
     lats, noise = [x], []
-    for t in ts:
+    kind = "kind=cfg_free" if cfg_free else "kind=cfg"
+    for k, t in enumerate(ts):
         t = int(t)
-        if cfg_free:
-            eps_c = pipeline.unet(x, t, context[s0:])
-            eps_g = eps_c
-        else:
-            eps = pipeline.unet(torch.cat([x, x], dim=0), t, context)
-            eps_u, eps_c = eps[:s0], eps[s0:]
-            eps_g = eps_u + guidance_scale * (eps_c - eps_u)
-        x = sched.ddim_inverse_step(pipeline.schedule, eps_g, t, x, num_steps)
+        with annotate("gd.inversion.step", f"step={k} {kind}"):
+            if cfg_free:
+                eps_c = pipeline.unet(x, t, context[s0:])
+                eps_g = eps_c
+            else:
+                eps = pipeline.unet(torch.cat([x, x], dim=0), t, context)
+                eps_u, eps_c = eps[:s0], eps[s0:]
+                eps_g = eps_u + guidance_scale * (eps_c - eps_u)
+            x = sched.ddim_inverse_step(pipeline.schedule, eps_g, t, x, num_steps)
         lats.append(x)
         noise.append(eps_c)
     return torch.stack(lats, dim=0), torch.stack(noise, dim=0)

@@ -22,6 +22,7 @@ from geodiffuser_tpu_torch.models import weights as weights_lib
 from geodiffuser_tpu_torch.models.tokenizer import CLIPTokenizer, HashTokenizer, load_tokenizer
 from geodiffuser_tpu_torch.models.unet import UNet2DCondition
 from geodiffuser_tpu_torch.models.vae import AutoencoderKL
+from geodiffuser_tpu_torch.utils.profiling import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -88,8 +89,10 @@ class Pipeline:
     @torch.no_grad()
     def encode_text(self, prompts: Sequence[str]) -> torch.Tensor:
         """List[str] -> (B, 77, cross_dim) float32 embeddings."""
-        ids = torch.as_tensor(self.tokenizer(list(prompts)), dtype=torch.long, device=self.device)
-        return self.text_encoder(ids)
+        with annotate("gd.text.encode"):
+            ids = torch.as_tensor(self.tokenizer(list(prompts)), dtype=torch.long,
+                                  device=self.device)
+            return self.text_encoder(ids)
 
     @torch.no_grad()
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
@@ -101,13 +104,15 @@ class Pipeline:
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
         """(E, H, W, 3) float in [0, 1] -> (E, h, w, 4) scaled latents: one
         VAE pass for a batch of edits."""
-        x = images.float() * 2.0 - 1.0
-        return self.vae.encode(x) * self.config.vae_scaling_factor
+        with annotate("gd.vae.encode"):
+            x = images.float() * 2.0 - 1.0
+            return self.vae.encode(x) * self.config.vae_scaling_factor
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """(S, h, w, 4) scaled latents -> (S, H, W, 3) uint8 (latent2image,
         diffusion.py:62-68)."""
-        img = self.vae.decode(latents / self.config.vae_scaling_factor)
-        img = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
-        return torch.round(img * 255.0).to(torch.uint8).cpu().numpy()
+        with annotate("gd.vae.decode"):
+            img = self.vae.decode(latents / self.config.vae_scaling_factor)
+            img = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
+            return torch.round(img * 255.0).to(torch.uint8).cpu().numpy()

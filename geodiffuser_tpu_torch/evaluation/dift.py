@@ -31,6 +31,7 @@ import torch
 
 from geodiffuser_tpu_torch.core.pipeline import Pipeline
 from geodiffuser_tpu_torch.ops import image as image_ops
+from geodiffuser_tpu_torch.utils.profiling import annotate
 
 
 def harris_keypoints(gray: np.ndarray, mask: Optional[np.ndarray] = None, max_points: int = 50,
@@ -121,9 +122,10 @@ class SDFeaturizer:
         latent = self.pipeline.encode_image(torch.from_numpy(img).to(dev))
         ctx = self.pipeline.encode_text([prompt])
         acc = None
-        for noise in self.draw_noises(tuple(latent.shape), generator):
-            f = self.features(latent, ctx, noise, self.t).float()
-            acc = f if acc is None else acc + f
+        for k, noise in enumerate(self.draw_noises(tuple(latent.shape), generator)):
+            with annotate("gd.dift.draw", f"draw={k}"):
+                f = self.features(latent, ctx, noise, self.t).float()
+                acc = f if acc is None else acc + f
         return (acc[0] / self.ensemble).cpu().numpy()
 
 

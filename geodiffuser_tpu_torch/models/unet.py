@@ -29,6 +29,7 @@ from geodiffuser_tpu_torch.models.layers import (
     Upsample2D,
     timestep_embedding,
 )
+from geodiffuser_tpu_torch.utils.profiling import annotate
 
 
 class _Block(nn.Module):
@@ -96,6 +97,9 @@ class UNet2DCondition(nn.Module):
         for name, module in self.named_modules():
             if isinstance(module, Attention):
                 module.tap_key = name
+        # each block's span in a trace (utils/profiling.annotate)
+        self.down_spans = tuple(f"gd.unet.down_blocks.{i}" for i in range(n))
+        self.up_spans = tuple(f"gd.unet.up_blocks.{i}" for i in range(n))
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 edit=None, acc=None, features: bool = False):
@@ -103,40 +107,44 @@ class UNet2DCondition(nn.Module):
         `edit`/`acc` as in models/attention.py.  With `features`, returns
         (eps, {"up_block_i": (S, h, w, C) NHWC}) where up_block_i is up block
         i's output before its upsampler."""
-        dtype = self.conv_in.weight.dtype
-        s = sample.shape[0]
-        t = torch.as_tensor(timestep, device=sample.device).expand(s)
-        temb = self.time_embedding(timestep_embedding(t, self.config.block_out_channels[0]))
-        context = encoder_hidden_states.to(dtype)
-        x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+        with annotate("gd.unet"):
+            dtype = self.conv_in.weight.dtype
+            s = sample.shape[0]
+            t = torch.as_tensor(timestep, device=sample.device).expand(s)
+            temb = self.time_embedding(timestep_embedding(t, self.config.block_out_channels[0]))
+            context = encoder_hidden_states.to(dtype)
+            x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
 
-        skips = [x]
-        for block in self.down_blocks:
-            for j, resnet in enumerate(block.resnets):
-                x = resnet(x, temb)
-                if hasattr(block, "attentions"):
-                    x = block.attentions[j](x, context, edit, acc)
-                skips.append(x)
-            if hasattr(block, "downsamplers"):
-                x = block.downsamplers[0](x)
-                skips.append(x)
+            skips = [x]
+            for block, span in zip(self.down_blocks, self.down_spans):
+                with annotate(span):
+                    for j, resnet in enumerate(block.resnets):
+                        x = resnet(x, temb)
+                        if hasattr(block, "attentions"):
+                            x = block.attentions[j](x, context, edit, acc)
+                        skips.append(x)
+                    if hasattr(block, "downsamplers"):
+                        x = block.downsamplers[0](x)
+                        skips.append(x)
 
-        mid = self.mid_block
-        x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, context, edit, acc)
-        x = mid.resnets[1](x, temb)
+            mid = self.mid_block
+            with annotate("gd.unet.mid_block"):
+                x = mid.resnets[0](x, temb)
+                x = mid.attentions[0](x, context, edit, acc)
+                x = mid.resnets[1](x, temb)
 
-        taps = {}
-        for i, block in enumerate(self.up_blocks):
-            for j, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
-                if hasattr(block, "attentions"):
-                    x = block.attentions[j](x, context, edit, acc)
-            if features:
-                taps[f"up_block_{i}"] = x.permute(0, 2, 3, 1)
-            if hasattr(block, "upsamplers"):
-                x = block.upsamplers[0](x)
+            taps = {}
+            for i, (block, span) in enumerate(zip(self.up_blocks, self.up_spans)):
+                with annotate(span):
+                    for j, resnet in enumerate(block.resnets):
+                        x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+                        if hasattr(block, "attentions"):
+                            x = block.attentions[j](x, context, edit, acc)
+                    if features:
+                        taps[f"up_block_{i}"] = x.permute(0, 2, 3, 1)
+                    if hasattr(block, "upsamplers"):
+                        x = block.upsamplers[0](x)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        eps = x.permute(0, 2, 3, 1).float()
+            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            eps = x.permute(0, 2, 3, 1).float()
         return (eps, taps) if features else eps

@@ -43,6 +43,7 @@ from geodiffuser_tpu_torch.core import inversion
 from geodiffuser_tpu_torch.core.editor import EditSession, logs_of_edit
 from geodiffuser_tpu_torch.ops import image as image_ops
 from geodiffuser_tpu_torch.utils import exp_io
+from geodiffuser_tpu_torch.utils.profiling import PhaseTimer
 
 
 @dataclasses.dataclass
@@ -98,53 +99,51 @@ class ShardedEditSession(EditSession):
         dev = self.device
         e = len(images)
         prompts = list(prompts) if prompts is not None else [""] * e
-        timings: Dict[str, float] = {}
-        t_start = time.time()
+        timer = PhaseTimer()
+        t_start = time.perf_counter()
 
-        images_f = np.asarray(images)
-        images_f = (images_f.astype(np.float32) / 255.0 if images_f.dtype == np.uint8
-                    else images_f.astype(np.float32))
-        f32 = dict(dtype=torch.float32, device=dev)
-        image_t = torch.as_tensor(images_f, **f32)
-        mask_t = image_ops.binarize(torch.as_tensor(np.asarray(masks_in), **f32))
-        tfs, masks = self.preprocess_batch(image_t, torch.as_tensor(np.asarray(depths), **f32),
-                                           mask_t, torch.as_tensor(np.asarray(transforms), **f32))
-        full_blend = self._full_blend(masks)
-        # each distinct prompt encoded once (a group's edits often share one)
-        distinct = list(dict.fromkeys(prompts))
-        ctx_cond = self.pipeline.encode_text(distinct)[[distinct.index(p) for p in prompts]]
-        ctx_uncond = self.pipeline.encode_text([cfg.uncond_text]).expand(e, -1, -1)
-        latent0 = self.pipeline.encode_images(image_t)
-        self._sync()
-        timings["preprocess"] = time.time() - t_start
+        with timer.phase("preprocess"):
+            images_f = np.asarray(images)
+            images_f = (images_f.astype(np.float32) / 255.0 if images_f.dtype == np.uint8
+                        else images_f.astype(np.float32))
+            f32 = dict(dtype=torch.float32, device=dev)
+            image_t = torch.as_tensor(images_f, **f32)
+            mask_t = image_ops.binarize(torch.as_tensor(np.asarray(masks_in), **f32))
+            tfs, masks = self.preprocess_batch(
+                image_t, torch.as_tensor(np.asarray(depths), **f32), mask_t,
+                torch.as_tensor(np.asarray(transforms), **f32))
+            full_blend = self._full_blend(masks)
+            # each distinct prompt encoded once (a group's edits often share one)
+            distinct = list(dict.fromkeys(prompts))
+            ctx_cond = self.pipeline.encode_text(distinct)[[distinct.index(p) for p in prompts]]
+            ctx_uncond = self.pipeline.encode_text([cfg.uncond_text]).expand(e, -1, -1)
+            latent0 = self.pipeline.encode_images(image_t)
+            self._sync()
 
-        t_inv = time.time()
-        all_latents = keys = None
-        if cfg.cache_inversion and exp_folders:
-            keys = [self.inversion_key(images_f[j], prompts[j]) for j in range(e)]
-            cached = [exp_io.load_inversion(f, k) for f, k in zip(exp_folders, keys)]
-            if all(c is not None for c in cached):
-                all_latents = torch.as_tensor(np.concatenate(cached, axis=1), **f32)
-        if all_latents is None:
-            all_latents = self._invert_group(latent0, ctx_uncond, ctx_cond, prompts)
-            if keys is not None:
-                host = all_latents.cpu().numpy()
-                for j, folder in enumerate(exp_folders):
-                    exp_io.save_inversion(folder, keys[j], host[:, j:j + 1])
-        self._sync()
-        timings["inversion"] = time.time() - t_inv
+        with timer.phase("inversion"):
+            all_latents = keys = None
+            if cfg.cache_inversion and exp_folders:
+                keys = [self.inversion_key(images_f[j], prompts[j]) for j in range(e)]
+                cached = [exp_io.load_inversion(f, k) for f, k in zip(exp_folders, keys)]
+                if all(c is not None for c in cached):
+                    all_latents = torch.as_tensor(np.concatenate(cached, axis=1), **f32)
+            if all_latents is None:
+                all_latents = self._invert_group(latent0, ctx_uncond, ctx_cond, prompts)
+                if keys is not None:
+                    host = all_latents.cpu().numpy()
+                    for j, folder in enumerate(exp_folders):
+                        exp_io.save_inversion(folder, keys[j], host[:, j:j + 1])
+            self._sync()
 
-        t_loop = time.time()
-        latents2, loss_log, weight_log = self._edit_loop(all_latents, ctx_uncond, ctx_cond,
-                                                         masks, full_blend)
-        self._sync()
-        timings["edit_loop"] = time.time() - t_loop
+        with timer.phase("edit_loop"):
+            latents2, loss_log, weight_log = self._edit_loop(all_latents, ctx_uncond, ctx_cond,
+                                                             masks, full_blend)
+            self._sync()
 
-        t_post = time.time()
-        images_out, edited, warped_u8 = self._decode_post(latents2, images_f,
-                                                          mask_t.cpu().numpy(), masks, tfs)
-        timings["decode_post"] = time.time() - t_post
-        timings["total"] = time.time() - t_start
+        with timer.phase("decode_post"):
+            images_out, edited, warped_u8 = self._decode_post(latents2, images_f,
+                                                              mask_t.cpu().numpy(), masks, tfs)
+        timings = dict(timer.totals, total=time.perf_counter() - t_start)
         return BatchEditResult(images=images_out, edited_images=edited, loss_log=loss_log,
                                timings=timings, weight_log=weight_log, latents=latents2,
                                warped_previews=warped_u8)
