@@ -46,10 +46,15 @@ Phases, each of which fails the run on error:
      geometry (64-wide heads, bf16, random weights from --seed) written as
      an fp16 checkpoint, its keys against the SD-2.1 manifests, loaded back
      bit-equal, one DIFT draw through the flash kernels against one with
-     the plain version, `mean_distance_metric` (8 noise draws) on the
-     scene against the driver's edited editor folder with every launch
-     count set to 0 just before and read just after (flash must launch at
-     both D-64 shapes), and the evaluation CLI
+     the plain version, the featurizer's 8-draw ensemble as one CUDA graph
+     against the eager ensemble (the scene, the edit, the scene again:
+     equal bits or `DIFT_TOL`; capture and replay times, the graph pool's
+     reserved bytes, `dift.GRAPHS`), `mean_distance_metric` (8 noise
+     draws) on the scene against the driver's edited editor folder under
+     a CUDA profiler, its launches counted from the trace's kernels (flash
+     must run at both D-64 shapes, as often as in two eager ensembles
+     counted by the kernel wrappers, and the graph replay once an image),
+     and the evaluation CLI
      (`python -m geodiffuser_tpu_torch.evaluation`: --metric md, offline,
      lpips, clip and fid on the driver's three folders and --path_1/--path_2,
      with random AlexNet/LPIPS .pth and CLIP ViT-B/32 weights) in a process
@@ -910,6 +915,49 @@ def launch_counts():
     return fa.LAUNCHES, rc.LAUNCHES, ks.LAUNCHES
 
 
+# for each counter of `launch_counts`, the device kernel that one counted
+# launch runs once (float32 or bf16 variant), as a profiler trace names it
+TRACE_KERNELS = {"flash_fwd": r"flash_fwd_(?:wgmma_)?kernel",
+                 "flash_bwd": r"flash_bwd_dq_(?:wgmma_)?kernel",
+                 "corr_fwd": r"corr_(?:combine|finalize)_kernel",
+                 "corr_bwd": r"(?:corr_)?bwd_keys_kernel",
+                 "splat_fused": r"splat_kernel"}
+
+
+def traced_launches(trace_events: list, shapes) -> tuple:
+    """The port's kernel launches in a CUDA profiler trace's events (the
+    "traceEvents" of `export_chrome_trace`): every kernel the device ran,
+    graph replays included, counted by `TRACE_KERNELS`, and the bf16 flash
+    forwards by shape.  A flash forward's shape is read back from its
+    kernel variant and grid (`fa.tile_plan`) against `shapes`, the
+    (B, Lq, Lk, D) that may have run; the forwards that not exactly one of
+    them gives are counted apart, by (variant, warpgroups, grid).  Returns
+    (launches, {(name, *shape): n}, {(variant, warpgroups, grid): n})."""
+    import re
+
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+
+    signature = {}
+    for shape in dict.fromkeys(map(tuple, shapes)):
+        plan = fa.tile_plan(*shape)
+        signature.setdefault((plan["variant"], plan["fwd"]["warpgroups"],
+                              (*plan["fwd"]["grid"], 1)), []).append(shape)
+    launches, by_shape, unnamed = dict.fromkeys(TRACE_KERNELS, 0), {}, {}
+    for e in trace_events:
+        if e.get("cat") != "kernel":
+            continue
+        for name, pattern in TRACE_KERNELS.items():
+            if re.search(rf"(?<!\w){pattern}(?!\w)", e["name"]):
+                launches[name] += 1
+        if m := re.search(r"(?<!\w)flash_fwd_wgmma_kernel<(\d+), *(\d+)>", e["name"]):
+            sig = (int(m[1]), int(m[2]), tuple(e.get("args", {}).get("grid", ())))
+            named = signature.get(sig, [])
+            counts, key = ((by_shape, ("flash_fwd", *named[0])) if len(named) == 1
+                           else (unnamed, sig))
+            counts[key] = counts.get(key, 0) + 1
+    return launches, by_shape, unnamed
+
+
 def path_edit(args, pipe, path: str):
     """The edit of `path` through the API a user calls, as a callable."""
     from geodiffuser_tpu_torch.config import EditConfig
@@ -1431,14 +1479,86 @@ def check_cli_outputs(outs: dict) -> None:
         expect(ok, f"evaluation CLI --metric {name}: {got}")
 
 
+def check_dift_graph(feat, images: list, seed: int):
+    """The featurizer's ensemble as a CUDA graph against the eager ensemble:
+    each image with a generator of its own seed, staged alike, featurized
+    once eagerly (`_stage`, `_ensemble`) and once by the call that captures
+    (the first) or replays the graph; equal bits expected, else `DIFT_TOL`.
+    The scene comes again last, so a replay that kept the previous image's
+    inputs fails.  Returns the first eager call's launches and launches by
+    shape, as the kernel wrappers count them."""
+    import torch
+
+    from geodiffuser_tpu_torch.evaluation import dift
+    from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import removal_corr as rc
+
+    def gen(i):
+        return torch.Generator(device="cuda").manual_seed(seed + 100 + i)
+
+    dift.GRAPHS.update(captures=0, replays=0, eager=0)
+    for counts in launch_counts():
+        counts.update(dict.fromkeys(counts, 0))
+    fa.SHAPES.clear()
+    rc.SHAPES.clear()
+    refs, eager_s = [], []
+    for i, img in enumerate(images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs.append(feat._ensemble(*feat._stage(img, "", gen(i)))[0].cpu())
+        eager_s.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = {k: v for counts in launch_counts() for k, v in counts.items()}
+            shapes = {**fa.SHAPES, **rc.SHAPES}
+
+    reserved = torch.cuda.memory_reserved()
+    max_reserved = torch.cuda.max_memory_reserved()
+    allocated = torch.cuda.memory_allocated()
+    call_s = []
+    for i, (img, ref) in enumerate(zip(images, refs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = torch.from_numpy(feat(img, "", gen(i)))
+        call_s.append(time.perf_counter() - t0)
+        if i == 0:
+            capture_s = feat._graph[1].capture_s
+            log(f"evaluation: DIFT graph captured in {capture_s:.3f} s (warm-up ensemble and "
+                f"capture; first call {call_s[0]:.3f} s); reserved {reserved} -> "
+                f"{torch.cuda.memory_reserved()} B, max reserved {max_reserved} -> "
+                f"{torch.cuda.max_memory_reserved()} B, allocated {allocated} -> "
+                f"{torch.cuda.memory_allocated()} B")
+        equal = torch.equal(got, ref)
+        rms = float((got - ref).norm() / ref.norm())
+        cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=-1).min())
+        log(f"evaluation: DIFT graph vs eager ensemble, image {i}: equal bits {equal}, largest "
+            f"abs diff {float((got - ref).abs().max()):.3e}, rel RMS {rms:.2e}, least cosine "
+            f"{cos:.5f}")
+        expect(equal or (rms <= DIFT_TOL["rel_rms"] and cos >= DIFT_TOL["min_cosine"]),
+               f"evaluation: DIFT graph image {i} against the eager ensemble")
+    replay_s = []
+    for i, img in enumerate(images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat(img, "", gen(i))
+        replay_s.append(time.perf_counter() - t0)
+    log(f"evaluation: DIFT call an image (stage, ensemble, read back): eager "
+        f"{[round(t, 4) for t in eager_s]} s, graph replayed "
+        f"{[round(t, 4) for t in call_s[1:] + replay_s]} s")
+    log(f"evaluation: DIFT featurizer calls {dift.GRAPHS}, one eager call's launches {launches}")
+    expect(dift.GRAPHS == {"captures": 1, "replays": 2 * len(images), "eager": 0},
+           f"evaluation: one DIFT capture and one replay a call ({dift.GRAPHS})")
+    return launches, shapes
+
+
 def run_evaluation(args, card: str, tmp: str, root: str):
     """The evaluation package at full SD-2.1 geometry, 512^2, bf16: the
     random pipeline written as an fp16 checkpoint and loaded back
     bit-equal, one DIFT draw through the kernels against the plain
-    version, `mean_distance_metric` on the scene against the driver's
-    edited editor folder with every launch count set to 0 just before and
-    read just after, then the CLI in a process of its own.  Returns
-    (launches, launches by shape)."""
+    version, the graphed ensemble against the eager one
+    (`check_dift_graph`), `mean_distance_metric` on the scene against the
+    driver's edited editor folder under a CUDA profiler, then the CLI in a
+    process of its own.  Returns MD's launches and launches by shape, read
+    from its profiler trace (`traced_launches`)."""
     import torch
 
     from geodiffuser_tpu_torch.config import ModelConfig
@@ -1446,7 +1566,6 @@ def run_evaluation(args, card: str, tmp: str, root: str):
     from geodiffuser_tpu_torch.evaluation import dift
     from geodiffuser_tpu_torch.evaluation.__main__ import _transform_field
     from geodiffuser_tpu_torch.kernels import flash_attention as fa
-    from geodiffuser_tpu_torch.kernels import removal_corr as rc
     from geodiffuser_tpu_torch.utils import exp_io, png
 
     t_phase = time.time()
@@ -1505,24 +1624,42 @@ def run_evaluation(args, card: str, tmp: str, root: str):
     expect(rms <= DIFT_TOL["rel_rms"] and cos >= DIFT_TOL["min_cosine"]
            and bool(torch.isfinite(f_kernel).all()), "evaluation: DIFT draw")
 
-    for counts in launch_counts():
-        counts.update(dict.fromkeys(counts, 0))
-    fa.SHAPES.clear()
-    rc.SHAPES.clear()
+    eager_launches, eager_shapes = check_dift_graph(feat, [image, edited, image], args.seed)
+
+    # a replay runs no Python, so MD's launches are the device's own
+    # records of the kernels it ran (the featurizer's graph was captured
+    # before the profiler started)
+    from torch.profiler import ProfilerActivity, profile
+
+    replays = dift.GRAPHS["replays"]
     t0 = time.time()
-    md, n_kp = dift.mean_distance_metric(feat, image, edited, mask, t_coords)
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        md, n_kp = dift.mean_distance_metric(feat, image, edited, mask, t_coords)
+        torch.cuda.synchronize()
     md_s = time.time() - t0
-    launches = {k: v for counts in launch_counts() for k, v in counts.items()}
-    shapes = {**fa.SHAPES, **rc.SHAPES}
+    trace = os.path.join(tmp, "md_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        launches, shapes, unnamed = traced_launches(
+            json.load(f)["traceEvents"],
+            [k[1:] for k in eager_shapes if k[0] == "flash_fwd"] + DIFT_FLASH_SHAPES)
+    os.remove(trace)
     log(f"evaluation MD (SD-2.1 DIFT, {SIZE}^2, {EVAL_ENSEMBLE} draws an image): {md:.3f} px "
-        f"over {n_kp} keypoints, {md_s:.2f} s")
-    log(f"evaluation: kernel launches {launches}")
-    log(f"evaluation: flash and corr launches by shape {shape_counts(shapes)}")
+        f"over {n_kp} keypoints, {md_s:.2f} s profiled")
+    log(f"evaluation: kernel launches in MD's profiler trace {launches}")
+    log(f"evaluation: flash launches by shape in MD's trace {shape_counts(shapes)}; by "
+        f"(variant, warpgroups, grid) of no one shape {unnamed}")
     expect(math.isfinite(md) and n_kp > 0, "evaluation: a finite MD over keypoints")
     for shape in DIFT_FLASH_SHAPES:
         n = shapes.get(("flash_fwd", *shape), 0)
         expect(n > 0, f"evaluation: flash_fwd launched {n} times at {shape}")
+    expect(launches == {k: 2 * eager_launches.get(k, 0) for k in launches}
+           and shapes == {k: 2 * n for k, n in eager_shapes.items()} and not unnamed,
+           f"evaluation: MD's traced launches {launches} are two eager ensembles' "
+           f"{eager_launches}")
+    log(f"evaluation: MD's featurizer calls {dift.GRAPHS}")
+    expect(dift.GRAPHS == {"captures": 1, "replays": replays + 2, "eager": 0},
+           f"evaluation: MD replays the captured ensemble once an image ({dift.GRAPHS})")
     del loaded, feat, latent, ctx, noise, f_kernel, f_plain
     torch.cuda.empty_cache()
 

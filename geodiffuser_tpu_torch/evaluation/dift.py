@@ -17,6 +17,9 @@ self-attention layers (64-wide heads) run the flash kernel.  The noise
 draws come from an explicit `torch.Generator` (seeded from `seed` when none
 is given, so that the source and the edit see the same draws, as the JAX
 package's PRNGKey(i) draws are the same for both); `features` is one draw.
+On the card a call's 8 draws run as one CUDA graph, replayed for every
+image of the same shape (`SDFeaturizer`), the draws' noises and the
+inputs staged eagerly before it.
 Keypoints: a numpy scale-space DoG detector (`sift_keypoints`, the detector
 half of SIFT; the reference uses cv2.SIFT positions only) with Harris
 corners as the fallback.
@@ -24,14 +27,19 @@ corners as the fallback.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from geodiffuser_tpu_torch.core.pipeline import Pipeline
 from geodiffuser_tpu_torch.ops import image as image_ops
+from geodiffuser_tpu_torch.utils.cuda_graphs import CapturedCall
 from geodiffuser_tpu_torch.utils.profiling import annotate
+
+# featurizer calls whose ensemble was captured as a CUDA graph, replayed,
+# or run eagerly (chip_smoke.py reads and resets them)
+GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
 
 def harris_keypoints(gray: np.ndarray, mask: Optional[np.ndarray] = None, max_points: int = 50,
@@ -84,7 +92,16 @@ def build_featurizer(weights_dir: Optional[str] = None, sd_version: str = "2.1",
 
 class SDFeaturizer:
     """Diffusion features from one noised UNet pass a draw (dift_sd.py
-    semantics: t=261, up_ft_index=1, an ensemble of 8 draws)."""
+    semantics: t=261, up_ft_index=1, an ensemble of 8 draws).
+
+    A call stages its inputs eagerly (the VAE latent, the text context and
+    the ensemble's noise draws from the caller's generator, `draw_noises`),
+    then runs the ensemble (`_ensemble`).  On the card the ensemble is one
+    CUDA graph, captured at the first call and replayed after it; the
+    capture is keyed on what it freezes (the latent's and context's shapes,
+    dtypes and device, `t`, `up_block`, `ensemble` and the UNet object), and
+    a call whose key differs captures anew.  The graph and its memory pool
+    belong to the featurizer and go with it."""
 
     def __init__(self, pipeline: Pipeline, t: int = 261, up_block: int = 1, ensemble: int = 8,
                  seed: int = 0):
@@ -93,15 +110,26 @@ class SDFeaturizer:
         self.up_block = up_block
         self.ensemble = ensemble
         self.seed = seed
+        self._scalars = {}
+        self._graph = None   # (key, CapturedCall)
+
+    def _step_scalars(self, t: int, device: torch.device):
+        """(alphas_cumprod[t], the (1,) int64 timestep) on `device`, uploaded
+        once: no host copy per draw, none inside a captured graph."""
+        key = (t, device)
+        if key not in self._scalars:
+            self._scalars[key] = (self.pipeline.schedule.alphas_cumprod[t].to(device),
+                                  torch.full((1,), t, dtype=torch.long, device=device))
+        return self._scalars[key]
 
     @torch.no_grad()
     def features(self, latent: torch.Tensor, context: torch.Tensor, noise: torch.Tensor,
                  t: int) -> torch.Tensor:
         """One draw: the latent noised to t with `noise`, one UNet pass,
         up block `up_block`'s (B, h, w, C) output in the model's type."""
-        a = self.pipeline.schedule.alphas_cumprod[t].to(latent.device)
+        a, timestep = self._step_scalars(t, latent.device)
         noised = torch.sqrt(a) * latent + torch.sqrt(1.0 - a) * noise
-        _, taps = self.pipeline.unet(noised, t, context, features=True)
+        _, taps = self.pipeline.unet(noised, timestep, context, features=True)
         return taps[f"up_block_{self.up_block}"]
 
     def draw_noises(self, shape, generator: torch.Generator) -> List[torch.Tensor]:
@@ -110,9 +138,9 @@ class SDFeaturizer:
         return [torch.randn(shape, generator=generator, device=dev) for _ in range(self.ensemble)]
 
     @torch.no_grad()
-    def __call__(self, image: np.ndarray, prompt: str = "",
-                 generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """(H, W, 3) image -> (h', w', C) float32 ensemble-mean features."""
+    def _stage(self, image: np.ndarray, prompt: str, generator: Optional[torch.Generator]):
+        """The ensemble's inputs: the image's latent, the prompt's context
+        and the noise draws, in that order from `generator`."""
         img = np.asarray(image, np.float32)
         if img.max() > 1.5:
             img = img / 255.0
@@ -121,12 +149,50 @@ class SDFeaturizer:
             generator = torch.Generator(device=dev).manual_seed(self.seed)
         latent = self.pipeline.encode_image(torch.from_numpy(img).to(dev))
         ctx = self.pipeline.encode_text([prompt])
+        return latent, ctx, self.draw_noises(tuple(latent.shape), generator)
+
+    @torch.no_grad()
+    def _ensemble(self, latent: torch.Tensor, ctx: torch.Tensor,
+                  noises: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The mean over the draws of up block `up_block`'s features,
+        summed in float32: (B, h', w', C)."""
         acc = None
-        for k, noise in enumerate(self.draw_noises(tuple(latent.shape), generator)):
+        for k, noise in enumerate(noises):
             with annotate("gd.dift.draw", f"draw={k}"):
                 f = self.features(latent, ctx, noise, self.t).float()
                 acc = f if acc is None else acc + f
-        return (acc[0] / self.ensemble).cpu().numpy()
+        return acc / self.ensemble
+
+    def _captured(self, latent: torch.Tensor, ctx: torch.Tensor,
+                  noises: Sequence[torch.Tensor]) -> CapturedCall:
+        """The ensemble's graph for these inputs, captured where none
+        matches them."""
+        # modules compare by identity: a new UNet object is a new key
+        key = (tuple(latent.shape), latent.dtype, latent.device, tuple(ctx.shape), ctx.dtype,
+               ctx.device, self.t, self.up_block, self.ensemble, self.pipeline.unet)
+        if self._graph is None or self._graph[0] != key:
+            self._graph = None   # the old graph's pool goes before the new one is made
+            self._step_scalars(self.t, latent.device)
+            graph = CapturedCall(lambda lat, c, *n: self._ensemble(lat, c, n),
+                                 [latent, ctx, *noises])
+            self._graph = (key, graph)
+            GRAPHS["captures"] += 1
+        return self._graph[1]
+
+    @torch.no_grad()
+    def __call__(self, image: np.ndarray, prompt: str = "",
+                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """(H, W, 3) image -> (h', w', C) float32 ensemble-mean features."""
+        latent, ctx, noises = self._stage(image, prompt, generator)
+        if latent.is_cuda:
+            graph = self._captured(latent, ctx, noises)
+            with annotate("gd.dift.replay"):
+                out = graph(latent, ctx, *noises)
+            GRAPHS["replays"] += 1
+        else:
+            out = self._ensemble(latent, ctx, noises)
+            GRAPHS["eager"] += 1
+        return out[0].cpu().numpy()
 
 
 def mean_distance_metric(featurizer: SDFeaturizer, source: np.ndarray, edited: np.ndarray,
