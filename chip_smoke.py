@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--steps N] [--large-steps N] [--seed S] [--profile]
-    python3 chip_smoke.py --only flash,corr,splat [--package-root DIR]
+    python3 chip_smoke.py --only flash,corr,splat,group_norm [--package-root DIR]
 
 Phases, each of which fails the run on error:
   1. builds the hand-written CUDA kernels from `geodiffuser_tpu_torch/csrc`
@@ -19,7 +19,16 @@ Phases, each of which fails the run on error:
      each edit its own live rows) against the plain version of each edit
      and against one single-edit launch per edit, timed beside them; the splat's
      every case must give equal bits in two launches and in two runs of its
-     plain version, and the stitch composite in two runs;
+     plain version, and the stitch composite in two runs; the channels-last
+     GroupNorm (+ SiLU) forward and backward in bf16 at DIFT's, an SD UNet
+     pass's, an editor CFG step's and the VAE's shapes, on activations whose
+     variance lies largely between channels and between pixel tiles (equal
+     bits in two launches), timed
+     beside ATen's NCHW GroupNorm + SiLU; then, traced by the profiler, one
+     SD-1.4 UNet pass with its latent gradient, a VAE encode and decode and
+     an SD-2.1 DIFT call replayed (after `check_dift_graph` on a fresh
+     featurizer), each without a cuDNN layout transpose or an ATen
+     GroupNorm kernel and with one GroupNorm kernel pair a module call;
   3. runs one full-width SD-1.4 UNet pass in bf16 (batch 2, 64x64x4 latent)
      and the latent gradient of <eps, R>, through the flash kernels and
      with `flash_attention` replaced by its plain version, and compares them;
@@ -90,8 +99,8 @@ Phases, each of which fails the run on error:
      1e-3, its control beyond it);
   5. runs a tiny float32 editor and remover edit on the card and on the CPU
      (plain versions) and compares them.
-`--only` (any of flash, corr, splat) runs phases 1 and 2 for the named
-kernels alone; with
+`--only` (any of flash, corr, splat, group_norm) runs phases 1 and 2 for
+the named kernels alone; with
 `--package-root DIR` the port is imported from DIR (a checkout of another
 commit), so that two commits' kernels are timed at the same shapes in one
 call.  Prints the card, a
@@ -868,6 +877,272 @@ def check_splat(rng_seed: int, own: bool):
 
 
 # ---------------------------------------------------------------------------
+# GroupNorm
+# ---------------------------------------------------------------------------
+
+# (N, C, H, W) of the GroupNorm kernels' check and timing: DIFT's batch-1
+# UNet at 64^2 and 16^2; an SD UNet pass at batch 2 at C/G = 20, 30 and 80
+# (2560 channels: the bf16 path with two chunks a thread); an editor CFG
+# step's 24 streams at 64^2 and at the 32^2 up block's 1920 channels; the
+# VAE's levels (C/G = 4, 8, 16) in an encode or decode of one image, and
+# its 512^2 level at 16 streams
+GN_SHAPES = [(1, 320, 64, 64), (1, 1280, 16, 16), (2, 640, 32, 32), (2, 960, 32, 32),
+             (2, 2560, 16, 16), (24, 320, 64, 64), (24, 1920, 32, 32), (1, 128, 512, 512),
+             (1, 256, 256, 256), (1, 512, 128, 128), (16, 128, 512, 512)]
+# bf16 GroupNorm kernels vs their plain version, relative to the largest
+# value of each output: both take float32 statistics (summed in another
+# order) and round each output element once to bf16, so an element may
+# differ by a bf16 rounding step (2^-8 of its value) where the float32
+# results straddle one; dx likewise
+GN_TOL = 8e-3
+# kernels no channels-last UNet or VAE pass may run: cuDNN's layout
+# transposes and ATen's NCHW GroupNorm statistics
+GN_FORBIDDEN = r"nchwToNhwc|nhwcToNchw|RowwiseMomentsCUDAKernel"
+
+
+def gn_activation(shape, g):
+    """A channels-last bf16 activation whose groups' variance lies largely
+    between their parts, as in a real activation, so that each merge of the
+    statistics carries weight: a mean and a scale a channel (the merge of
+    channels into groups), a ramp down the image that most channels share
+    (tiles, runs of pixels in raster order, differ: the merge of tiles) and
+    a stripe across it (neighbouring pixels differ, and a block's threads
+    take pixels a stride apart: the merge of a block's rows), around noise
+    of a scale a channel."""
+    import torch
+
+    n, c, h, w = shape
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    down = torch.linspace(-1.0, 1.0, h, device="cuda").view(1, 1, h, 1)
+    across = (1.0 - 2.0 * (torch.arange(w, device="cuda") % 2)).view(1, 1, 1, w)
+    x = (randn(1, c, 1, 1) * 1.5 + 0.5 + (randn(1, c, 1, 1) * 0.5 + 2.5) * down
+         + (randn(1, c, 1, 1) * 0.3 + 1.0) * across
+         + randn(1, c, 1, 1).mul(0.5).exp() * randn(shape))
+    return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+def gn_variance_shares(x, groups: int, tiles: int, tile: int) -> tuple:
+    """Shares of sample 0's first group's variance that lie between its
+    channels and between the kernels' tiles."""
+    import torch
+
+    c = x.shape[1] // groups
+    xg = x[0, :c].float().permute(1, 2, 0).reshape(-1, c)   # (HW, C/G), raster order
+    var = float(xg.var(unbiased=False))
+    between_c = float(xg.mean(0).var(unbiased=False)) / var
+    sums = torch.zeros(tiles, device=x.device).index_add_(
+        0, torch.arange(xg.shape[0], device=x.device) // tile, xg.mean(1))
+    counts = torch.bincount(torch.arange(xg.shape[0], device=x.device) // tile).float()
+    between_t = float((counts * (sums / counts - xg.mean()) ** 2).sum() / counts.sum()) / var
+    return between_c, between_t
+
+
+def check_group_norm(rng_seed: int):
+    """The GroupNorm kernels against their plain version at `GN_SHAPES`,
+    bf16 channels-last, 32 groups, on `gn_activation`s: forward, and x's
+    gradient, with and without the SiLU; two launches must give equal
+    bits.  Times the forward and the backward with the SiLU, the ResNets'
+    case, beside the plain version, ATen's GroupNorm + SiLU on NCHW
+    (`library_ms`, the parent's path) and the bound: the least traffic at
+    3.35 TB/s (forward: x read and y written once; backward: x and dy read
+    and dx written once).  The kernels' own traffic (x read twice forward,
+    x and dy twice backward) is logged beside it as `design_ms`."""
+    import torch
+    import torch.nn.functional as F
+
+    from geodiffuser_tpu_torch.kernels import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed + 7)
+    cl = torch.channels_last
+    groups, eps = 32, 1e-5
+    rec = {"group_norm_fwd": {"timed_shapes": []}, "group_norm_bwd": {"timed_shapes": []}}
+    for shape in GN_SHAPES:
+        n, c, h, w = shape
+        randn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+        x = gn_activation(shape, g)
+        dy = randn(shape).to(torch.bfloat16).contiguous(memory_format=cl)
+        wt = (randn(c) * 0.2 + 1.0).to(torch.bfloat16)
+        bs = (randn(c) * 0.1).to(torch.bfloat16)
+        p = gn.plan(n, c, h * w, 2)
+        shares = gn_variance_shares(x, groups, p["tiles"], p["tile"])
+        for silu in (False, True):
+            y, stats = gn.group_norm_fwd_cuda(x, wt, bs, groups, eps, silu)
+            again, _ = gn.group_norm_fwd_cuda(x, wt, bs, groups, eps, silu)
+            dx = gn.group_norm_bwd_cuda(dy, x, wt, bs, stats, groups, silu)
+            twice = gn.group_norm_bwd_cuda(dy, x, wt, bs, stats, groups, silu)
+            xl = x.clone().requires_grad_(True)
+            y_p = gn.group_norm_plain(xl, wt, bs, groups, eps, silu)
+            (ref,) = torch.autograd.grad(y_p, xl, dy)
+            torch.cuda.synchronize()
+            e_y, e_x = rel_err(y, y_p), rel_err(dx, ref)
+            same = torch.equal(y, again) and torch.equal(dx, twice)
+            layout = y.is_contiguous(memory_format=cl) and dx.is_contiguous(memory_format=cl)
+            log(f"group_norm bf16 {shape} silu={silu}: {p['tiles']} tiles of {p['tile']} pixels, "
+                f"group variance {100 * shares[0]:.0f}% between channels, "
+                f"{100 * shares[1]:.0f}% between tiles; rel err y {e_y:.2e}, dx {e_x:.2e} "
+                f"(tol {GN_TOL:.0e}); y and dx channels-last {layout}; two launches equal "
+                f"bits {same}")
+            expect(e_y <= GN_TOL and e_x <= GN_TOL and same and layout,
+                   f"group_norm {shape} silu={silu}")
+            err_f, err_b = abs_err(y, y_p), abs_err(dx, ref)
+            del y_p, ref, xl, again, twice, dx
+        e = x.numel() * x.element_size()
+        ms_f = device_ms(lambda: gn.group_norm_fwd_cuda(x, wt, bs, groups, eps, True))
+        ms_b = device_ms(lambda: gn.group_norm_bwd_cuda(dy, x, wt, bs, stats, groups, True))
+        xl = x.clone().requires_grad_(True)
+        plain_f = device_ms(lambda: gn.group_norm_plain(x, wt, bs, groups, eps, True), 3)
+        y_p = gn.group_norm_plain(xl, wt, bs, groups, eps, True)
+        plain_b = device_ms(lambda: torch.autograd.grad(y_p, xl, dy, retain_graph=True), 3)
+        del y_p
+        xn, dyn = x.contiguous(), dy.contiguous()
+        lib_f = device_ms(lambda: F.silu(F.group_norm(xn, groups, wt, bs, eps)))
+        xnl = xn.clone().requires_grad_(True)
+        y_l = F.silu(F.group_norm(xnl, groups, wt, bs, eps))
+        lib_b = device_ms(lambda: torch.autograd.grad(y_l, xnl, dyn, retain_graph=True))
+        del y_l, xnl, xl, xn, dyn
+        for name, ms, plain, lib, least, design, err in (
+                ("group_norm_fwd", ms_f, plain_f, lib_f, 2, 3, err_f),
+                ("group_norm_bwd", ms_b, plain_b, lib_b, 3, 5, err_b)):
+            bound = bound_ms(least * e, 0, "bf16")
+            design_ms = bound_ms(design * e, 0, "bf16")[0]
+            rec[name]["timed_shapes"].append(dict(
+                shape=list(shape), ms=ms, plain_ms=plain, library_ms=lib, bound=bound,
+                design_ms=design_ms, max_abs_err=err, tiles=p["tiles"]))
+            log(f"{name} bf16 {shape} silu: {ms:.4f} ms, plain {plain:.4f}, ATen NCHW "
+                f"{lib:.4f}, bound {bound[0]:.4f} ({least}x the activation), "
+                f"{100 * bound[0] / ms:.1f}% of the bound; the kernels' own traffic "
+                f"({design}x) {design_ms:.4f}, {100 * design_ms / ms:.1f}%; "
+                f"{lib / ms:.2f}x faster than ATen")
+        del x, dy, stats
+        torch.cuda.empty_cache()
+    for name, r in rec.items():
+        first = r["timed_shapes"][0]
+        r.update({k: v for k, v in first.items() if k not in ("max_abs_err", "design_ms", "tiles")},
+                 max_abs_err=max(sh["max_abs_err"] for sh in r["timed_shapes"]), dtype="bf16")
+    return rec
+
+
+def profiled_kernels(fn) -> list:
+    """The CUDA kernel events of a profiler trace of `fn()` (graph replays
+    included), as `traced_launches` reads them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def norm_calls(models, fn) -> int:
+    """GroupNorm module calls of `models` while `fn()` runs eagerly."""
+    import torch
+
+    calls, hooks = [], []
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                hooks.append(m.register_forward_pre_hook(lambda *_: calls.append(1)))
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(calls)
+
+
+def check_layout_trace(name: str, kernels: list, norms: int, backward: bool, per: int = 1):
+    """A traced pass's kernels: no layout transpose and no ATen GroupNorm
+    statistics, one GroupNorm kernel pair a module call (`norms`) forward
+    and, with `backward`, backward; logs its device time and costliest
+    kernels.  Returns the device time in ms over `per`."""
+    import re
+    from collections import Counter
+
+    launches = traced_launches(kernels, [])[0]
+    forbidden = Counter(e["name"][:90] for e in kernels if re.search(GN_FORBIDDEN, e["name"]))
+    busy = Counter()
+    for e in kernels:
+        busy[e["name"].replace("(anonymous namespace)::", "").split("(")[0][-70:]] += e["dur"]
+    total_ms = sum(busy.values()) / 1e3
+    log(f"{name}: device time {total_ms / per:.3f} ms (over {per}), {len(kernels)} kernels; "
+        f"GroupNorm fwd/bwd launches {launches['group_norm_fwd']}/{launches['group_norm_bwd']} "
+        f"for {norms} module calls; transposes and ATen statistics {dict(forbidden)}")
+    log(f"{name}: costliest " + "; ".join(f"{us / 1e3 / per:.3f} ms {k}"
+                                          for k, us in busy.most_common(8)))
+    expect(not forbidden, f"{name}: layout transposes or ATen GroupNorm kernels ran")
+    expect(launches["group_norm_fwd"] == norms
+           and launches["group_norm_bwd"] == (norms if backward else 0),
+           f"{name}: one GroupNorm kernel pair a module call")
+    return total_ms / per
+
+
+def check_group_norm_paths(args) -> dict:
+    """The channels-last models on the card, each traced by the profiler
+    (`check_layout_trace`): one SD-1.4 UNet pass (batch 2, 64^2 latent)
+    with the latent gradient, one VAE encode (512^2) and decode, and one
+    SD-2.1 DIFT call replayed, after `check_dift_graph` on a fresh
+    featurizer.  Returns device times in ms."""
+    import torch
+
+    from geodiffuser_tpu_torch.config import ModelConfig
+    from geodiffuser_tpu_torch.core.pipeline import Pipeline
+    from geodiffuser_tpu_torch.evaluation import dift
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    side = SIZE // 8
+    pipe = Pipeline.create(ModelConfig(), image_size=SIZE, seed=args.seed, device="cuda")
+    latent = torch.randn(2, side, side, 4, device="cuda", generator=g)
+    context = torch.randn(2, 77, pipe.config.cross_attention_dim, device="cuda", generator=g)
+    r = torch.randn(2, side, side, 4, device="cuda", generator=g)
+
+    def unet_grad():
+        x = latent.clone().requires_grad_(True)
+        eps = pipe.unet(x, 500, context)
+        return torch.autograd.grad((eps * r).sum(), x)
+
+    norms = norm_calls([pipe.unet], unet_grad)
+    out["sd14_unet_fwd_bwd_ms"] = check_layout_trace(
+        "group_norm paths: SD-1.4 UNet pass + latent gradient (2, 64, 64, 4)",
+        profiled_kernels(unet_grad), norms, True)
+    with torch.no_grad():
+        fwd = lambda: pipe.unet(latent, 500, context)
+        out["sd14_unet_fwd_ms"] = check_layout_trace(
+            "group_norm paths: SD-1.4 UNet pass (2, 64, 64, 4)", profiled_kernels(fwd),
+            norm_calls([pipe.unet], fwd), False)
+        image = torch.rand(1, SIZE, SIZE, 3, device="cuda", generator=g)
+        z = pipe.vae.encode(image * 2.0 - 1.0)
+        for name, fn in (("encode (1, 512, 512, 3)", lambda: pipe.vae.encode(image * 2.0 - 1.0)),
+                         ("decode (1, 64, 64, 4)", lambda: pipe.vae.decode(z))):
+            out[f"vae_{name.split()[0]}_ms"] = check_layout_trace(
+                f"group_norm paths: VAE {name}", profiled_kernels(fn),
+                norm_calls([pipe.vae], fn), False)
+    del pipe, latent, context, r, image, z
+    torch.cuda.empty_cache()
+
+    sd21 = Pipeline.create(ModelConfig.sd21(), image_size=SIZE, seed=args.seed, device="cuda")
+    feat = dift.SDFeaturizer(sd21, ensemble=EVAL_ENSEMBLE, seed=args.seed)
+    scene = build_scene(SIZE)[0]
+    mirrored = np.ascontiguousarray(scene[:, ::-1])
+    check_dift_graph(feat, [scene, mirrored, scene], args.seed)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(args.seed + 100)
+    norms = norm_calls([sd21.unet, sd21.vae], lambda: feat._ensemble(*feat._stage(scene, "", gen())))
+    out["dift_call_ms"] = check_layout_trace(
+        f"group_norm paths: SD-2.1 DIFT call, replayed ({EVAL_ENSEMBLE} draws)",
+        profiled_kernels(lambda: feat(scene, "", gen())), norms, False)
+    del feat, sd21
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The edit
 # ---------------------------------------------------------------------------
 
@@ -896,7 +1171,8 @@ LARGE = 1024                     # image side of the large editor and remover ed
 # fast-start inner loop, the attention constraints, the inversion cached in
 # an experiment folder), whose constrained self layers take the explicit
 # removal loss and its cross layers the kernel
-FOUR = {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None}
+FOUR = {"flash_fwd": None, "flash_bwd": None, "corr_fwd": None, "corr_bwd": None,
+        "group_norm_fwd": None, "group_norm_bwd": None}
 PATH_KERNELS = {"editor": FOUR, "remover": FOUR, "stitch": dict(FOUR, splat_fused=1),
                 "options": FOUR, "editor1024": FOUR, "remover1024": FOUR,
                 "batch_editor": FOUR, "batch_remover": FOUR,
@@ -909,10 +1185,11 @@ OPTIONS_CFG = dict(num_ddim_steps=4, fast_start_steps=0.2, num_first_optim_steps
 
 def launch_counts():
     from geodiffuser_tpu_torch.kernels import flash_attention as fa
+    from geodiffuser_tpu_torch.kernels import group_norm as gn
     from geodiffuser_tpu_torch.kernels import removal_corr as rc
     from geodiffuser_tpu_torch.kernels import splat as ks
 
-    return fa.LAUNCHES, rc.LAUNCHES, ks.LAUNCHES
+    return fa.LAUNCHES, rc.LAUNCHES, ks.LAUNCHES, gn.LAUNCHES
 
 
 # for each counter of `launch_counts`, the device kernel that one counted
@@ -921,7 +1198,9 @@ TRACE_KERNELS = {"flash_fwd": r"flash_fwd_(?:wgmma_)?kernel",
                  "flash_bwd": r"flash_bwd_dq_(?:wgmma_)?kernel",
                  "corr_fwd": r"corr_(?:combine|finalize)_kernel",
                  "corr_bwd": r"(?:corr_)?bwd_keys_kernel",
-                 "splat_fused": r"splat_kernel"}
+                 "splat_fused": r"splat_kernel",
+                 "group_norm_fwd": r"gn_apply_kernel",
+                 "group_norm_bwd": r"gn_bwd_apply_kernel"}
 
 
 def traced_launches(trace_events: list, shapes) -> tuple:
@@ -2570,6 +2849,8 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
                  "geodiffuser_tpu/kernels/removal_corr.py:462"),
     "splat_fused": ("geodiffuser_tpu_torch/csrc/splat.cu",
                     "geodiffuser_tpu/kernels/splat.py:167"),
+    "group_norm_fwd": ("geodiffuser_tpu_torch/csrc/group_norm.cu", None),
+    "group_norm_bwd": ("geodiffuser_tpu_torch/csrc/group_norm.cu", None),
 }
 
 
@@ -2585,13 +2866,14 @@ def main(argv=None) -> int:
                          "and list each depth backend's largest kernels")
     ap.add_argument("--only", default=None,
                     help="check and time only these kernels: any of flash, corr, splat, "
-                         "comma-separated")
+                         "group_norm, comma-separated (group_norm also traces the "
+                         "channels-last models)")
     ap.add_argument("--package-root", default=None,
                     help="import geodiffuser_tpu_torch from this directory")
     args = ap.parse_args(argv)
     only = set((args.only or "").split(",")) - {""}
-    if not only <= {"flash", "corr", "splat"}:
-        ap.error(f"--only takes flash, corr and splat, not {args.only}")
+    if not only <= {"flash", "corr", "splat", "group_norm"}:
+        ap.error(f"--only takes flash, corr, splat and group_norm, not {args.only}")
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
 
@@ -2640,6 +2922,14 @@ def main(argv=None) -> int:
         t0 = time.time()
         rec.update(check_splat(args.seed, own=args.package_root is None))
         log(f"splat checks and timings: {time.time() - t0:.1f} s")
+    if not only or "group_norm" in only:
+        t0 = time.time()
+        rec.update(check_group_norm(args.seed))
+        log(f"group_norm checks and timings: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        paths = check_group_norm_paths(args)
+        log(f"group_norm paths: device ms {json.dumps({k: round(v, 3) for k, v in paths.items()})}"
+            f"; {time.time() - t0:.1f} s")
     if only:
         from geodiffuser_tpu_torch.kernels import flash_attention as fa
 
@@ -2703,6 +2993,10 @@ def main(argv=None) -> int:
                 launches_by_path={path: shapes.get((name, *sh["shape"]), 0)
                                   for path, (_, shapes) in runs.items()})
                 for sh in r["shapes"]]
+        if "timed_shapes" in r:   # group_norm: every timed shape
+            entry["timed_shapes"] = [dict({k: v for k, v in sh.items() if k != "bound"},
+                                          bound_ms=sh["bound"][0], bound_by=sh["bound"][1])
+                                     for sh in r["timed_shapes"]]
         if "timed_inputs" in r:   # splat: C=4, C=3, C=1 jittered; the stitch scene and zooms
             entry["timed_inputs"], entry["case_ms"] = r["timed_inputs"], r["case_ms"]
         if "library_backend" in r:

@@ -45,6 +45,13 @@ class Pipeline:
     device: torch.device
     image_size: int = 512
 
+    def __post_init__(self):
+        # channels-last filters once, for the channels-last activations of
+        # the UNet and the VAE (models/layers.py): cuDNN then transposes no
+        # filter on any call.  Results do not depend on it.
+        for module in (self.unet, self.vae):
+            module.to(memory_format=torch.channels_last)
+
     @property
     def latent_size(self) -> int:
         return self.image_size // 8

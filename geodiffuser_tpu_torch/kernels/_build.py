@@ -42,6 +42,8 @@ SIGNATURES = {
     "gd_corr_bwd_bf16": [_P] * 17 + [_I] * 6 + [_F, _P],
     "gd_splat_workspace": [_I] * 4,
     "gd_splat_fused": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
+    "gd_group_norm_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    "gd_group_norm_bwd": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 
@@ -139,9 +141,11 @@ def dtype_code(t) -> int:
 
 
 def stream_ptr(t) -> int:
+    """The current CUDA stream of t's device, as a pointer (the capture
+    stream inside a CUDA graph capture), without making a Stream object."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(*tensors) -> None:

@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from geodiffuser_tpu_torch.core import edit_attention
 from geodiffuser_tpu_torch.core.edit_state import EditState, LossAccumulator, RecordTaps
-from geodiffuser_tpu_torch.models.layers import FeedForward
+from geodiffuser_tpu_torch.models.layers import FeedForward, GroupNorm, channels_last
 
 
 class Attention(nn.Module):
@@ -99,16 +99,17 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """GN -> proj_in -> transformer blocks -> proj_out + residual on NCHW
-    tensors (diffusers Transformer2DModel).  SD-1.x projects with 1x1
-    convs before the reshape to tokens; SD-2.x (`use_linear_projection`)
-    reshapes to tokens first and projects with Linear layers."""
+    """GN -> proj_in -> transformer blocks -> proj_out + residual on
+    channels-last (N, C, H, W) tensors (diffusers Transformer2DModel), whose
+    (N, H*W, C) tokens are views.  SD-1.x projects with 1x1 convs before the
+    reshape to tokens; SD-2.x (`use_linear_projection`) reshapes to tokens
+    first and projects with Linear layers."""
 
     def __init__(self, channels: int, heads: int, cross_attention_dim: int,
                  num_layers: int = 1, groups: int = 32, use_linear_projection: bool = False):
         super().__init__()
         self.use_linear_projection = use_linear_projection
-        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.norm = GroupNorm(groups, channels, eps=1e-6)
         proj = (lambda: nn.Linear(channels, channels)) if use_linear_projection else \
             (lambda: nn.Conv2d(channels, channels, 1))
         self.proj_in = proj()
@@ -126,5 +127,5 @@ class Transformer2DModel(nn.Module):
         for block in self.transformer_blocks:
             y = block(y, context, edit, acc)
         if self.use_linear_projection:
-            return self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2) + x
-        return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x
+            return channels_last(self.proj_out(y).reshape(b, h, w, c)) + x
+        return self.proj_out(channels_last(y.reshape(b, h, w, c))) + x

@@ -1,8 +1,10 @@
 """Shared building blocks of the SD-1.x models, diffusers parameter names.
 
-Counterpart of `geodiffuser_tpu/models/layers.py`.  Modules work on NCHW
-tensors internally; the models' public functions keep the JAX package's
-NHWC layout.
+Counterpart of `geodiffuser_tpu/models/layers.py`.  Modules take
+(N, C, H, W) tensors stored channels-last (N, H, W, C in memory) from the
+first convolution to the last, so that cuDNN's NHWC convolutions need no
+layout transposes; the models' public functions keep the JAX package's NHWC
+layout, whose permuted view is that channels-last tensor.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from geodiffuser_tpu_torch.kernels.group_norm import group_norm
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
     """Sinusoidal embedding, SD-1.x convention (flip_sin_to_cos=True,
@@ -23,6 +27,21 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
                                                      device=timesteps.device) / half
     args = timesteps.float()[..., None] * torch.exp(exponent)[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def channels_last(x_nhwc: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> the (N, C, H, W) channels-last view of the same
+    memory (a copy only where x is not contiguous)."""
+    return x_nhwc.contiguous().permute(0, 3, 1, 2)
+
+
+class GroupNorm(nn.GroupNorm):
+    """`nn.GroupNorm` (same parameters, no buffers) through
+    `kernels/group_norm.group_norm`: channels-last in and out, and with
+    `silu=True` the SiLU after it in the same pass."""
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu)
 
 
 class TimestepEmbedding(nn.Module):
@@ -43,19 +62,19 @@ class ResnetBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  temb_channels: Optional[int] = None):
         super().__init__()
-        self.norm1 = nn.GroupNorm(groups, in_channels, eps=1e-5)
+        self.norm1 = GroupNorm(groups, in_channels, eps=1e-5)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels) if temb_channels else None
-        self.norm2 = nn.GroupNorm(groups, out_channels, eps=1e-5)
+        self.norm2 = GroupNorm(groups, out_channels, eps=1e-5)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -77,7 +96,10 @@ class Upsample2D(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        # `F.interpolate` keeps channels-last, except for a 1 x 1 input,
+        # whose layout is ambiguous (there the copy is not a no-op)
+        up = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        return self.conv(up.contiguous(memory_format=torch.channels_last))
 
 
 class GEGLU(nn.Module):

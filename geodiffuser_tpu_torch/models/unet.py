@@ -9,7 +9,8 @@ blocks = 32 attention layers.  SD-2.x takes its heads per block
 public forward keeps the JAX package's NHWC layout: (S, H, W, 4) in,
 (S, H, W, 4) float32 out; with `features=True` also each up block's output
 before its upsampler (the JAX package's `features` collection, the DIFT
-featurizer's taps).
+featurizer's taps).  Inside, every activation is channels-last
+(models/layers.py), so the NHWC input, output and taps are views.
 """
 
 from __future__ import annotations
@@ -18,15 +19,16 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from geodiffuser_tpu_torch.config import ModelConfig
 from geodiffuser_tpu_torch.models.attention import Attention, Transformer2DModel
 from geodiffuser_tpu_torch.models.layers import (
     Downsample2D,
+    GroupNorm,
     ResnetBlock2D,
     TimestepEmbedding,
     Upsample2D,
+    channels_last,
     timestep_embedding,
 )
 from geodiffuser_tpu_torch.utils.profiling import annotate
@@ -92,7 +94,7 @@ class UNet2DCondition(nn.Module):
             us = [Upsample2D(ch)] if i < n - 1 else None
             up.append(_Block(resnets, attns, upsamplers=us))
         self.up_blocks = nn.ModuleList(up)
-        self.conv_norm_out = nn.GroupNorm(g, chans[0], eps=1e-5)
+        self.conv_norm_out = GroupNorm(g, chans[0], eps=1e-5)
         self.conv_out = nn.Conv2d(chans[0], config.out_channels, 3, padding=1)
         for name, module in self.named_modules():
             if isinstance(module, Attention):
@@ -113,7 +115,7 @@ class UNet2DCondition(nn.Module):
             t = torch.as_tensor(timestep, device=sample.device).expand(s)
             temb = self.time_embedding(timestep_embedding(t, self.config.block_out_channels[0]))
             context = encoder_hidden_states.to(dtype)
-            x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+            x = self.conv_in(channels_last(sample.to(dtype)))
 
             skips = [x]
             for block, span in zip(self.down_blocks, self.down_spans):
@@ -145,6 +147,6 @@ class UNet2DCondition(nn.Module):
                     if hasattr(block, "upsamplers"):
                         x = block.upsamplers[0](x)
 
-            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            x = self.conv_out(self.conv_norm_out(x, silu=True))
             eps = x.permute(0, 2, 3, 1).float()
         return (eps, taps) if features else eps

@@ -2,25 +2,32 @@
 
 Counterpart of `geodiffuser_tpu/models/vae.py`.  `encode` returns the
 posterior mean (the reference always uses latent_dist.mean, diffusion.py:95);
-the 0.18215 scaling is applied by callers.  Public functions are NHWC.
+the 0.18215 scaling is applied by callers.  Public functions are NHWC;
+inside, activations are channels-last (models/layers.py).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from geodiffuser_tpu_torch.config import ModelConfig
-from geodiffuser_tpu_torch.models.layers import Downsample2D, ResnetBlock2D, Upsample2D
+from geodiffuser_tpu_torch.models.layers import (
+    Downsample2D,
+    GroupNorm,
+    ResnetBlock2D,
+    Upsample2D,
+    channels_last,
+)
 
 
 class VaeAttentionBlock(nn.Module):
-    """Single-head self-attention over the spatial grid."""
+    """Single-head self-attention over the spatial grid, its tokens a view
+    of the channels-last input."""
 
     def __init__(self, channels: int, groups: int):
         super().__init__()
-        self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.group_norm = GroupNorm(groups, channels, eps=1e-6)
         self.to_q = nn.Linear(channels, channels)
         self.to_k = nn.Linear(channels, channels)
         self.to_v = nn.Linear(channels, channels)
@@ -33,7 +40,7 @@ class VaeAttentionBlock(nn.Module):
         logits = torch.matmul(q.float(), k.float().transpose(1, 2))
         probs = torch.softmax(logits * (c ** -0.5), dim=-1).to(v.dtype)
         y = self.to_out[0](torch.matmul(probs, v))
-        return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return x + channels_last(y.reshape(b, h, w, c))
 
 
 class _Block(nn.Module):
@@ -71,7 +78,7 @@ class Encoder(nn.Module):
             blocks.append(_Block(resnets, downsamplers=[Downsample2D(ch)] if i < len(chans) - 1 else None))
         self.down_blocks = nn.ModuleList(blocks)
         self.mid_block = _mid(chans[-1], g)
-        self.conv_norm_out = nn.GroupNorm(g, chans[-1], eps=1e-6)
+        self.conv_norm_out = GroupNorm(g, chans[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(chans[-1], 2 * config.vae_latent_channels, 3, padding=1)
 
     def forward(self, x):
@@ -82,7 +89,7 @@ class Encoder(nn.Module):
             if hasattr(block, "downsamplers"):
                 x = block.downsamplers[0](x)
         x = _run_mid(self.mid_block, x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -100,7 +107,7 @@ class Decoder(nn.Module):
                 x_ch = ch
             blocks.append(_Block(resnets, upsamplers=[Upsample2D(ch)] if i < len(chans) - 1 else None))
         self.up_blocks = nn.ModuleList(blocks)
-        self.conv_norm_out = nn.GroupNorm(g, chans[-1], eps=1e-6)
+        self.conv_norm_out = GroupNorm(g, chans[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(chans[-1], 3, 3, padding=1)
 
     def forward(self, z):
@@ -110,7 +117,7 @@ class Decoder(nn.Module):
                 x = resnet(x)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class AutoencoderKL(nn.Module):
@@ -126,12 +133,12 @@ class AutoencoderKL(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(S, H, W, 3) in [-1, 1] -> (S, H/8, W/8, 4) posterior mean (unscaled)."""
         dtype = self.quant_conv.weight.dtype
-        moments = self.quant_conv(self.encoder(x.to(dtype).permute(0, 3, 1, 2)))
+        moments = self.quant_conv(self.encoder(channels_last(x.to(dtype))))
         mean = moments[:, : self.config.vae_latent_channels]
         return mean.permute(0, 2, 3, 1).float()
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(S, h, w, 4) unscaled latents -> (S, H, W, 3) float32 in [-1, 1]."""
         dtype = self.post_quant_conv.weight.dtype
-        x = self.decoder(self.post_quant_conv(z.to(dtype).permute(0, 3, 1, 2)))
+        x = self.decoder(self.post_quant_conv(channels_last(z.to(dtype))))
         return x.permute(0, 2, 3, 1).float()

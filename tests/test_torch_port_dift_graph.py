@@ -147,11 +147,18 @@ def test_traced_launches_count_the_device_records():
                  _kernel("void corr_bwd_keys_kernel<float, 2>(float const*)"),
                  _kernel("void corr_bwd_rows_kernel<float, 2>(float const*)"),
                  _kernel("splat_kernel(Splat)"),
+                 _kernel("void (anonymous namespace)::gn_stats_kernel<__nv_bfloat16, 1>(Geo)"),
+                 _kernel("void (anonymous namespace)::gn_apply_kernel<__nv_bfloat16, 1, true>"
+                         "(__nv_bfloat16 const*)"),
+                 _kernel("void (anonymous namespace)::gn_bwd_reduce_kernel<float, 2, false>"
+                         "(float const*)"),
+                 _kernel("void (anonymous namespace)::gn_bwd_apply_kernel<float, 2, false>"
+                         "(float const*)"),
                  {"ph": "X", "cat": "cpu_op", "name": "flash_fwd_wgmma_kernel<80, 2>"},
                  {"ph": "X", "cat": "gpu_user_annotation", "name": "gd.dift.replay"}])
     launches, shapes, unnamed = chip_smoke.traced_launches(events, [self_64, self_32, self_64])
     assert launches == {"flash_fwd": 6, "flash_bwd": 1, "corr_fwd": 2, "corr_bwd": 2,
-                        "splat_fused": 1}
+                        "splat_fused": 1, "group_norm_fwd": 1, "group_norm_bwd": 1}
     assert shapes == {("flash_fwd", *self_64): 3, ("flash_fwd", *self_32): 1}
     assert unnamed == {(40, 4, (8, 16, 1)): 1}
     # self and cross attention at one grid: not told apart
